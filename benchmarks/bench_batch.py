@@ -1,61 +1,35 @@
-"""Multi-track batched separation: samples/s and MFU vs batch size.
+"""Multi-track batched separation on one GPU: samples/s and MFU vs batch.
 
-The TPU's structural advantage over the reference's one-song CLI
-(Executable/main.c:444-674) is fleet throughput: many tracks per dispatch
-keep the MXU fed instead of paying the per-dispatch prologue per song.
-Measures `parallel.mesh.make_batch_fn` (single chip, 1-device mesh) at
-B in {1, 4, 16, 64} tracks per dispatch, VST 4-stem config.
+Many tracks per dispatch amortize the per-dispatch cost of the reference's
+one-song CLI (Executable/main.c:444-674). Measures
+`parallel.mesh.make_batch_fn` (one-device mesh) at B tracks per dispatch,
+VST 4-stem config, bf16.
 
-Per config prints one JSON line with:
-  audio samples/s/chip, total realtime factor, and MFU (analytical
-  pipeline FLOPs -- bench._pipeline_flops, the U-Net convs + true-FFT
-  cost -- / wall time / 197 TFLOP/s v5e bf16 peak; XLA's cost analysis
-  cannot see inside Pallas custom calls so its FLOP count undercounts the
-  packed U-Net and fused transforms severalfold and is reported only as
-  xla_gflops for reference).
+Per config prints one JSON line: audio samples/s, total real-time factor,
+the dispatch time, and MFU (analytical pipeline FLOPs -- bench._pipeline_flops,
+the U-Net convs + FFT cost -- over wall time over bench.PEAK_BF16), plus the
+device block.
 
-Usage: python benchmarks/bench_batch.py [--reps 3]
+Usage: python benchmarks/bench_batch.py [--reps 5] [--configs 1:60,4:60]
 """
 
 import argparse
 import json
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-_CACHE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    ".cache", "jaxcache",
-)
-os.makedirs(_CACHE, exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", _CACHE)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-
-import jax.numpy as jnp
-import numpy as np
-
-from spleeterrt_tpu.config import SeparatorConfig
-from spleeterrt_tpu.core import model, transform
-from spleeterrt_tpu.parallel import mesh as mesh_mod
+import bench  # noqa: E402
 
 SR = 44100
-V5E_BF16_PEAK = 197e12
-
-# (tracks per dispatch, seconds per track): per-dispatch audio is capped
-# near 8 track-minutes -- B16 x 60 s compiles to a 20.6 GB peak (masks +
-# packed spectra + output audio) and exceeds the 15.75 GB v5e HBM; B64 at
-# 7.5 s also OOMs because sub-tile tracks pad 57% of their frames
-# (time_step tiles are 5.94 s), so the short-track row is B32 x 15 s.
+# (tracks per dispatch, seconds per track).
 CONFIGS = [(1, 60.0), (4, 60.0), (16, 30.0), (32, 15.0)]
 
 
-def main():
+def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--configs", type=str, default=None,
                     help="comma list like 1:60,16:60")
     args = ap.parse_args()
@@ -66,65 +40,45 @@ def main():
             for b, s in (c.split(":") for c in args.configs.split(","))
         ]
 
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from spleeterrt_tpu.config import SeparatorConfig
+    from spleeterrt_tpu.core import model, transform
+    from spleeterrt_tpu.parallel import mesh as mesh_mod
+
+    if not bench.require_gpu():
+        return 2
+    device = bench.device_info()
+    peak = bench.peak_bf16(device["kind"])
     cfg = SeparatorConfig(
         bin_limit=1536, time_step=256, num_stems=4, compute_dtype=jnp.bfloat16
     )
     params4 = [model.init_params(jax.random.PRNGKey(i)) for i in range(4)]
     stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *params4)
-    mesh = mesh_mod.make_mesh(stem_parallel=1)
+    mesh = mesh_mod.make_mesh(jax.devices()[:1])
+    batch_fn, _ = mesh_mod.make_batch_fn(cfg, mesh, 4)
     rng = np.random.default_rng(0)
 
     for b, seconds in configs:
         n = int(seconds * SR)
-        tracks = np.asarray(
-            rng.standard_normal((b, 2, n)) * 0.3, np.float32
-        )
-        padded = np.stack(
-            [np.asarray(transform.pad_offline(t, cfg.transform)) for t in tracks]
-        )
-        padded = jax.device_put(jnp.asarray(padded))
-
-        batch_fn, _ = mesh_mod.make_batch_fn(cfg, mesh, 4)
-
-        @jax.jit
-        def run(params, tracks):
-            return jnp.sum(jnp.abs(batch_fn(params, tracks)))
-
-        lowered = run.lower(stacked, padded)
-        compiled = lowered.compile()
-        try:
-            xla_flops = float(compiled.cost_analysis()["flops"])
-        except Exception:
-            xla_flops = float("nan")
-        import bench  # repo-root bench.py: analytical FLOP model
-
+        tracks = jnp.asarray(rng.standard_normal((b, 2, n)) * 0.3, jnp.float32)
+        padded = jax.device_put(transform.pad_offline(tracks, cfg.transform))
+        sec = bench.median_seconds(batch_fn, stacked, padded, reps=args.reps)
         flops = b * bench._pipeline_flops(seconds, cfg, 4)
-
-        float(run(stacked, padded))  # warm
-        best = float("inf")
-        for _ in range(args.reps):
-            t0 = time.perf_counter()
-            float(run(stacked, padded))
-            best = min(best, time.perf_counter() - t0)
-
         total_audio = b * seconds
-        print(
-            json.dumps(
-                {
-                    "metric": f"batch_B{b}_L{seconds:g}s",
-                    "value": round(total_audio * SR / best, 0),
-                    "unit": "audio_samples_per_s_per_chip",
-                    "vs_baseline": round(total_audio / best, 1),
-                    "dispatch_ms": round(best * 1e3, 1),
-                    "mfu_pct": round(100 * flops / best / V5E_BF16_PEAK, 2),
-                    "analytical_gflops": round(flops / 1e9, 1),
-                    "xla_gflops": round(xla_flops / 1e9, 1)
-                    if xla_flops == xla_flops
-                    else None,
-                }
-            )
-        )
+        print(json.dumps({
+            "metric": f"batch_B{b}_L{seconds:g}s",
+            "value": total_audio * SR / sec,
+            "unit": "audio_samples_per_s_per_chip",
+            "rtf": total_audio / sec,
+            "dispatch_ms": sec * 1e3,
+            "mfu_pct": 100.0 * flops / sec / peak,
+            "device": device,
+        }), flush=True)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

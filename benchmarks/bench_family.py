@@ -1,12 +1,10 @@
-"""Realtime factor of every offline stem-graph family on the chip.
+"""Real-time factor of every offline stem-graph family on one GPU.
 
 The reference CLI's modes are 2/3/4(/5)-stem (Executable/main.c:845-970);
-bench.py records the flagship 4-stem number. This measures all four
-graphs at the production config on the same 300 s workload so the fused
-3-stem path (one STFT + one 3-stem masked-iSTFT, core/separate.py) has a
-recorded RTF next to the 4-stem one (VERDICT r4 item 3).
+bench.py records the 4-stem number. This measures all four graphs at the
+VST widths (bin limit 1536, time step 256, bf16) on the same workload.
 
-Prints one JSON line per family: {"metric": "rtf_Nstem", ...}.
+Prints one JSON line per family: {"metric": "rtf_<N>stem_44k1", ...}.
 
 Usage: python benchmarks/bench_family.py [--seconds 300] [--reps 5]
 """
@@ -15,35 +13,30 @@ import argparse
 import json
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-_CACHE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    ".cache", "jaxcache",
-)
-os.makedirs(_CACHE, exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", _CACHE)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-
-import jax.numpy as jnp
-import numpy as np
-
-from spleeterrt_tpu.config import SeparatorConfig
-from spleeterrt_tpu.core import model, separate, transform
+import bench  # noqa: E402
 
 SR = 44100
 
 
-def main():
+def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seconds", type=float, default=300.0)
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
 
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from spleeterrt_tpu.config import SeparatorConfig
+    from spleeterrt_tpu.core import model, separate, transform
+
+    if not bench.require_gpu():
+        return 2
+    device = bench.device_info()
     cfg = SeparatorConfig(
         bin_limit=1536, time_step=256, num_stems=4, compute_dtype=jnp.bfloat16
     )
@@ -56,54 +49,25 @@ def main():
     padded = jax.device_put(transform.pad_offline(audio, cfg.transform))
 
     graphs = {
-        "2stem": jax.jit(
-            lambda p: jnp.sum(jnp.abs(separate.separate_2stem(p[0], p[1], cfg)))
-        ),
-        "3stem": jax.jit(
-            lambda p: jnp.sum(
-                jnp.abs(separate.separate_3stem(p[0], p[1], p[2], cfg))
-            )
-        ),
-        "4stem": jax.jit(
-            lambda p: jnp.sum(jnp.abs(separate.separate_4stem(p[0], p[1], cfg)))
-        ),
-        "5stem": jax.jit(
-            lambda p: jnp.sum(
-                jnp.abs(
-                    separate.separate_nstem(
-                        p[0], p[1], cfg, separate.OUT_BAND_5
-                    )
-                )
-            )
+        "2stem": (separate.separate_2stem, (params[0], padded, cfg)),
+        "3stem": (separate.separate_3stem, (params[0], params[1], padded, cfg)),
+        "4stem": (separate.separate_4stem, (stack(params[:4]), padded, cfg)),
+        "5stem": (
+            separate.separate_nstem,
+            (stack(params), padded, cfg, separate.OUT_BAND_5),
         ),
     }
-    argsets = {
-        "2stem": (params[0], padded),
-        "3stem": (params[0], params[1], padded),
-        "4stem": (stack(params[:4]), padded),
-        "5stem": (stack(params), padded),
-    }
-
-    for name, fn in graphs.items():
-        a = argsets[name]
-        float(fn(a))  # compile + warm
-        best = float("inf")
-        for _ in range(args.reps):
-            t0 = time.perf_counter()
-            float(fn(a))
-            best = min(best, time.perf_counter() - t0)
-        print(
-            json.dumps(
-                {
-                    "metric": f"rtf_{name}_44k1",
-                    "value": round(args.seconds / best, 2),
-                    "unit": "x_realtime_per_chip",
-                    "dispatch_ms": round(best * 1e3, 1),
-                }
-            ),
-            flush=True,
-        )
+    for name, (fn, fargs) in graphs.items():
+        sec = bench.median_seconds(fn, *fargs, reps=args.reps)
+        print(json.dumps({
+            "metric": f"rtf_{name}_44k1",
+            "value": args.seconds / sec,
+            "unit": "x_realtime_per_chip",
+            "dispatch_ms": sec * 1e3,
+            "device": device,
+        }), flush=True)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

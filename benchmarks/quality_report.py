@@ -1,25 +1,20 @@
-"""Quality-acceptance report: fused-vs-canonical and bf16-vs-fp32 bounds.
+"""Quality report: the GPU's stems against fp32 on the CPU, end to end.
 
-BASELINE.md's acceptance criterion is that separated stems match the
-reference within an SNR/SDR bound (the reference itself claims ~1e-4 MSE
-against the TensorFlow model, README.MD). The oracle tests pin the
-canonical formulation to the C semantics bit-for-bit on small shapes; this
-script records the END-TO-END numbers at the production config on a
-deterministic synthetic track, so the bound is a committed artifact
-(benchmarks/results/quality.json + docs/PARITY.md) rather than a test
-assertion threshold.
+The oracle tests pin the plain formulation to the C semantics on small
+shapes; this script records the end-to-end numbers at the production widths
+(bin limit 1536, time step 256) on a deterministic 12 s synthetic track, for
+the 4-stem and the 3-stem graphs (docs/PARITY.md).
 
-Variants compared (each runs in its own subprocess so the backend and
-kernel gates are what a user would actually get):
+Variants, each in its own subprocess so that one process at a time holds
+the card and the parent never imports JAX:
 
-- cpu_fp32:      true-CPU canonical formulation, float32 -- the truth.
-- tpu_can_fp32:  canonical formulation on the chip, float32 (XLA numerics).
-- tpu_fused_f32: fused Pallas graph (stft_fused + packed U-Net), float32.
-- tpu_fused_bf16: the production default (bfloat16 compute).
+- cpu_fp32:         the CPU backend, float32 -- the reference.
+- gpu_fp32_highest: the GPU, float32, matmul precision "highest".
+- gpu_fp32:         the GPU, float32 at default precision (convs may run
+                    in TF32).
+- gpu_bf16:         the GPU, bfloat16 compute -- the production default.
 
-Reported: per-stem SNR / SI-SDR / MSE of each variant against cpu_fp32,
-plus fused-vs-canonical-on-chip and bf16-vs-fp32 isolations, for the
-4-stem graph and the fused 3-stem graph.
+Reported: per-stem SNR / SI-SDR / MSE of each GPU variant against cpu_fp32.
 
 Usage: python benchmarks/quality_report.py            (orchestrates)
        python benchmarks/quality_report.py --stage compute ...  (internal)
@@ -31,7 +26,8 @@ import os
 import subprocess
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import numpy as np
 
@@ -52,23 +48,20 @@ def synth_track(n: int) -> np.ndarray:
 
 
 def compute_stage(args):
+    import contextlib
+
     import jax
-
-    if args.backend == "cpu":
-        jax.config.update("jax_platforms", "cpu")
-    else:
-        cache = os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            ".cache", "jaxcache",
-        )
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-
     import jax.numpy as jnp
 
     from spleeterrt_tpu.config import SeparatorConfig
-    from spleeterrt_tpu.core import model, separate, transform, weights
+    from spleeterrt_tpu.core import model, platform, separate, transform, weights
+
+    platform.enable_compile_cache()
+    if jax.default_backend() != args.backend:
+        raise SystemExit(
+            f"variant wants backend {args.backend!r}, JAX has "
+            f"{jax.default_backend()!r}"
+        )
 
     dtype = jnp.bfloat16 if args.dtype == "bf16" else jnp.float32
     cfg = SeparatorConfig(
@@ -78,19 +71,21 @@ def compute_stage(args):
     audio = jnp.asarray(synth_track(n))
     padded = transform.pad_offline(audio, cfg.transform)
     preshift, _ = transform.offline_pad_sizes(n, cfg.transform)
-    pallas = args.formulation == "fused"
+    precision = (
+        jax.default_matmul_precision("highest")
+        if args.precision == "highest"
+        else contextlib.nullcontext()
+    )
 
     params4 = weights.stack_params(
         [model.init_params(jax.random.PRNGKey(i)) for i in range(4)]
     )
-    stems4 = separate.separate_nstem(
-        params4, padded, cfg, separate.OUT_BAND_4, pallas=pallas
-    )
-    stems4 = np.asarray(stems4[..., preshift : preshift + n], np.float32)
-
     p4 = model.init_params(jax.random.PRNGKey(10))
     p2 = model.init_params(jax.random.PRNGKey(11))
-    stems3 = separate.separate_3stem(p4, p2, padded, cfg, pallas=pallas)
+    with precision:
+        stems4 = separate.separate_nstem(params4, padded, cfg, separate.OUT_BAND_4)
+        stems3 = separate.separate_3stem(p4, p2, padded, cfg)
+    stems4 = np.asarray(stems4[..., preshift : preshift + n], np.float32)
     stems3 = np.asarray(stems3[..., preshift : preshift + n], np.float32)
 
     np.savez(args.out, stems4=stems4, stems3=stems3)
@@ -98,10 +93,10 @@ def compute_stage(args):
 
 
 VARIANTS = {
-    "cpu_fp32": ["--backend", "cpu", "--dtype", "fp32", "--formulation", "canonical"],
-    "tpu_can_fp32": ["--backend", "default", "--dtype", "fp32", "--formulation", "canonical"],
-    "tpu_fused_fp32": ["--backend", "default", "--dtype", "fp32", "--formulation", "fused"],
-    "tpu_fused_bf16": ["--backend", "default", "--dtype", "bf16", "--formulation", "fused"],
+    "cpu_fp32": ["--backend", "cpu", "--dtype", "fp32"],
+    "gpu_fp32_highest": ["--backend", "gpu", "--dtype", "fp32", "--precision", "highest"],
+    "gpu_fp32": ["--backend", "gpu", "--dtype", "fp32"],
+    "gpu_bf16": ["--backend", "gpu", "--dtype", "bf16"],
 }
 
 STEMS4 = ("drums", "bass", "accompaniment", "vocals")
@@ -124,11 +119,11 @@ def compare(a: np.lib.npyio.NpzFile, b, key, names):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--stage", choices=["compute"], default=None)
-    ap.add_argument("--backend", default="default")
+    ap.add_argument("--backend", default="gpu", choices=("cpu", "gpu"))
     ap.add_argument("--dtype", default="fp32")
-    ap.add_argument("--formulation", default="canonical")
+    ap.add_argument("--precision", default="default", choices=("default", "highest"))
     ap.add_argument("--out", default=None)
-    ap.add_argument("--workdir", default="/tmp/spleeterrt_quality")
+    ap.add_argument("--workdir", default=os.path.join(ROOT, ".cache", "quality"))
     args = ap.parse_args()
     if args.stage == "compute":
         compute_stage(args)
@@ -142,32 +137,25 @@ def main():
         if os.path.exists(out):
             print(f"# reusing {out}", file=sys.stderr)
             continue
+        env = dict(os.environ)
+        if flags[1] == "cpu":
+            env["JAX_PLATFORMS"] = "cpu"
         subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--stage", "compute",
              *flags, "--out", out],
-            check=True,
+            check=True, env=env,
         )
 
     loaded = {k: np.load(v) for k, v in files.items()}
     truth = loaded["cpu_fp32"]
     report = {"config": "bin_limit=1536 time_step=256, 12 s synthetic track"}
-    for name in ("tpu_can_fp32", "tpu_fused_fp32", "tpu_fused_bf16"):
+    for name in ("gpu_fp32_highest", "gpu_fp32", "gpu_bf16"):
         report[f"{name}_vs_cpu_fp32_4stem"] = compare(
             truth, loaded[name], "stems4", STEMS4
         )
-    report["tpu_fused_bf16_vs_cpu_fp32_3stem"] = compare(
-        truth, loaded["tpu_fused_bf16"], "stems3", STEMS3
-    )
-    # Isolations: formulation alone (same chip, fp32) and dtype alone.
-    report["fused_vs_canonical_on_chip_fp32_4stem"] = compare(
-        loaded["tpu_can_fp32"], loaded["tpu_fused_fp32"], "stems4", STEMS4
-    )
-    report["bf16_vs_fp32_fused_4stem"] = compare(
-        loaded["tpu_fused_fp32"], loaded["tpu_fused_bf16"], "stems4", STEMS4
-    )
-    report["fused_vs_canonical_on_chip_fp32_3stem"] = compare(
-        loaded["tpu_can_fp32"], loaded["tpu_fused_fp32"], "stems3", STEMS3
-    )
+        report[f"{name}_vs_cpu_fp32_3stem"] = compare(
+            truth, loaded[name], "stems3", STEMS3
+        )
     print(json.dumps(report, indent=1))
 
 

@@ -1,14 +1,14 @@
-"""SpleeterRT-TPU: a TPU-native music source separation framework.
+"""spleeterrt-tpu: music source separation in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 james34602/SpleeterRT (reference: C/pthreads/BLAS, CPU-only): offline and
 streaming Spleeter U-Net source separation (vocals / drums / bass /
-accompaniment) at 44.1 kHz, built TPU-first:
+accompaniment) at 44.1 kHz, for an NVIDIA GPU:
 
 - batched rFFT STFT/iSTFT instead of a hand-unrolled Hartley codelet
   (reference: Executable/codelet.c, Executable/stftFix.c),
-- one fused, batched U-Net forward over all spectrogram tiles and stems on
-  the MXU instead of per-thread replicas + im2col/GEMM
+- one batched U-Net forward over all spectrogram tiles and stems (cuDNN
+  convolutions) instead of per-thread replicas + im2col/GEMM
   (reference: Executable/spleeter.c, Executable/main.c:444-674),
 - `jax.sharding.Mesh` + collectives for scale instead of pthread pools
   (reference: Executable/cpthread.c),

@@ -3,8 +3,8 @@
 Reference: `SpleeterRT spawnNthreads timeStep analyseBinLimit stems audioFile`
 (Executable/main.c:704-748), with arg clamping (timeStep >= 64,
 analyseBinLimit in [512, 2048]) and stage timing printfs
-(Executable/main.c:772,783,825). Threads become chips: the tile batch shards
-over however many devices the mesh has.
+(Executable/main.c:772,783,825). The reference's worker threads become one
+batched pass over every spectrogram tile on the device.
 
 Stem file naming matches the reference (`<name>_Vocal.wav`,
 `<name>_Accompaniment.wav`, `<name>_Drum.wav`, Executable/main.c:812-965)
@@ -33,7 +33,7 @@ STEM_FILENAMES = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="spleeterrt-tpu",
-        description="TPU-native Spleeter source separation (offline CLI).",
+        description="Spleeter source separation in JAX (offline CLI).",
     )
     p.add_argument("audio", help="input audio file (WAV; FLAC/MP3 via ffmpeg)")
     p.add_argument("--stems", type=int, default=2, choices=(2, 3, 4, 5))
@@ -138,9 +138,10 @@ def main(argv=None) -> int:
     import jax.numpy as jnp
 
     from spleeterrt_tpu.config import SeparatorConfig
-    from spleeterrt_tpu.core import separate
+    from spleeterrt_tpu.core import platform, separate
     from spleeterrt_tpu.io import audio as audio_io, resample
 
+    platform.enable_compile_cache()
     cfg = SeparatorConfig(
         bin_limit=args.bin_limit,
         time_step=args.time_step,
@@ -148,7 +149,7 @@ def main(argv=None) -> int:
         compute_dtype=jnp.bfloat16 if args.bf16 else jnp.float32,
     )
     print(f"spleeterrt-tpu: {len(jax.devices())} device(s), "
-          f"{jax.devices()[0].platform} backend")
+          f"{platform.backend()} backend")
 
     t0 = time.perf_counter()
     try:

@@ -71,10 +71,12 @@ def main(argv=None) -> int:
     import jax.numpy as jnp
 
     from spleeterrt_tpu.config import STEMS_4, SeparatorConfig
-    from spleeterrt_tpu.core import model, weights
+    from spleeterrt_tpu.core import model, platform, weights
     from spleeterrt_tpu.io import audio as audio_io, resample
     from spleeterrt_tpu.runtime import stream
 
+    platform.enable_compile_cache()
+    print(f"backend: {platform.backend()}", file=sys.stderr)
     cfg = SeparatorConfig(
         bin_limit=args.bin_limit // 64 * 64,
         time_step=max(64, args.time_step // 64 * 64),

@@ -72,7 +72,7 @@ class SeparatorConfig:
 
     Mirrors the reference CLI surface
     (`SpleeterRT spawnNthreads timeStep analyseBinLimit stems audioFile`,
-    Executable/main.c:704-748) plus TPU-specific knobs.
+    Executable/main.c:704-748) plus the compute dtype and mask sigmoid.
     """
 
     transform: TransformConfig = TransformConfig()
@@ -87,7 +87,7 @@ class SeparatorConfig:
     # Gain applied to bins >= bin_limit in the offline path
     # (unaffectedWeight, Executable/main.c:773).
     unaffected_weight: float = 0.1
-    # Compute dtype for the U-Net. bf16 feeds the MXU at full rate; fp32 is
+    # Compute dtype for the U-Net. bf16 runs the convs on the tensor cores; fp32 is
     # kept for parity testing against the scalar C semantics.
     compute_dtype: jnp.dtype = jnp.bfloat16
     # Activation of the final mask: the reference exe uses a 1025-entry

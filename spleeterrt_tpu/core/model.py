@@ -1,7 +1,7 @@
 """Spleeter U-Net forward pass as a pure function over a params pytree.
 
 Reference semantics (Executable/spleeter.c:111-301), re-derived for
-`lax.conv_general_dilated` in NHWC/HWIO (TPU-native layouts):
+`lax.conv_general_dilated` in NHWC/HWIO layouts:
 
 - 6 encoder convs: 5x5, stride 2. The reference's im2col offset arithmetic
   (pad = padding + dilation - 1 = 2, hoffset/woffset = 2,
@@ -31,7 +31,7 @@ uses ELU everywhere with inputs below -15 clamped to -1.
 
 Input layout: the C code runs CHW planes of shape (2, timeStep, binLimit)
 (Executable/main.c:468: magnitude[ch][time][bin]); here NHWC
-(batch, time, bins, 2) so channels ride the TPU lane dimension.
+(batch, time, bins, 2), the channels-last layout cuDNN takes directly.
 """
 
 from __future__ import annotations
@@ -149,77 +149,16 @@ def _tconv_same(x: jax.Array, w: jax.Array) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# TPU fast layouts: exact algebraic rewrites of the channel-poor layers.
-#
-# The shallow ends of the U-Net underutilize the MXU's 128 lanes (Cin=2 at
-# the input, Cout=1/16 at the decoder exit); measured on v5e, the
-# lhs-dilated transposed convs there are ~1.75x slower than the equivalent
-# "subpixel" rewrite and the stride-2 input conv ~1.5x slower than its
-# space-to-depth form. Both rewrites are exact (see the derivations below
-# and test_model.py::test_fast_layouts_exact); CPU keeps the canonical
-# forms (its conv lowering prefers them and the oracle parity tests pin
-# them bit-for-bit).
+# Exact rewrites of the two channel-poor ends of the U-Net. The stride-2
+# input conv (Cin=2) becomes one stride-1 conv over space-to-depth packed
+# input, and the lhs-dilated transposed convs of up5/up6 (Cout=16/1) become
+# one stride-1 "subpixel" conv plus depth-to-space. Both are exact (see the
+# derivations below and test_model.py::test_fast_layouts_exact), and both
+# are faster than the canonical forms on the GPU and on the CPU (PERF.md:
+# up5+up6 12.8 ms against 65.1 ms, enc1 4.0 ms against 5.8 ms at the 300 s
+# 4-stem batch on an NVIDIA H100 80GB HBM3 at 400 W). The canonical
+# `_conv_same`/`_tconv_same` stay as the oracle-checked references.
 # ---------------------------------------------------------------------------
-
-# None = force canonical (False) / fast (True) regardless of backend.
-FORCE_FAST_LAYOUTS: bool | None = None
-# Same, for the fused Pallas decoder tail (kernels/mask_head.py).
-FORCE_PALLAS_HEAD: bool | None = None
-# Same, for the fused Pallas encoder front (kernels/encoder.py).
-FORCE_PALLAS_ENCODER: bool | None = None
-# Same, for the round-4 fully packed trunk (kernels/encoder.py 4-layer
-# chain + XLA mid + kernels/tail.py up4/up5/head). When it applies it
-# supersedes the enc/head gates above.
-FORCE_PACKED_UNET: bool | None = None
-
-
-def _use_fast_layouts() -> bool:
-    if FORCE_FAST_LAYOUTS is not None:
-        return FORCE_FAST_LAYOUTS
-    return jax.default_backend() != "cpu"
-
-
-# Above this many (stem * tile) batch rows the XLA head formulation wins
-# OVER THE ROUND-3 KERNEL: its host-side quad pack/unpack transposes scale
-# with batch (docs/PERF.md round-4 study: input pack alone 10.7 ms at
-# S*B = 204). The round-4 packed trunk (_use_packed_unet) supersedes this
-# whole gate for the standard architecture; it remains for the fallback
-# kernel on non-standard architectures at small batch.
-PALLAS_HEAD_MAX_BATCH = 64
-
-
-def _use_pallas_head(params: Params, magnitude: jax.Array, sigmoid: str) -> bool:
-    """Fused up6+up7+sigmoid kernel: accelerator fast path only.
-
-    The kernel hard-codes the standard architecture's decoder tail (32->1ch
-    up6, 1->2ch 4x4 up7) and needs quad-packable frequency columns and
-    TT-divisible time rows at half resolution. `params` may carry a leading
-    stem axis (only the trailing shape is checked). Large batches take the
-    XLA head instead (see PALLAS_HEAD_MAX_BATCH).
-    """
-    from spleeterrt_tpu.kernels import mask_head
-
-    t, f = magnitude.shape[-3], magnitude.shape[-2]
-    n_stems = jax.tree.leaves(params)[0].shape[0] if _is_stacked(params) else 1
-    batch = magnitude.shape[0] if magnitude.ndim == 4 else 1
-    ok = (
-        sigmoid == "exact"
-        and params["up6"]["w"].shape[-4:] == (5, 5, 32, 1)
-        and params["up7"]["w"].shape[-4:] == (4, 4, 1, 2)
-        and (f // 2) % (4 * mask_head.QUAD) == 0
-        and (t // 2) % mask_head.TT == 0
-    )
-    if FORCE_PALLAS_HEAD is not None:
-        return FORCE_PALLAS_HEAD and ok
-    ok = ok and n_stems * batch <= PALLAS_HEAD_MAX_BATCH
-    # Deliberately NOT _use_fast_layouts(): forcing the XLA layout rewrites
-    # on CPU (tests) must not drag in a compiled-mode Pallas kernel.
-    return jax.default_backend() != "cpu" and ok
-
-
-def _is_stacked(params: Params) -> bool:
-    """True if `params` carries a leading stem axis (5-D conv kernels)."""
-    return params["up6"]["w"].ndim == 5
 
 
 def _pack_tconv_kernel(w: jax.Array) -> jax.Array:
@@ -291,13 +230,13 @@ def _conv_same_s2d(x: jax.Array, w: jax.Array) -> jax.Array:
 
 
 def _conv_encoder(x: jax.Array, w: jax.Array, layer: int) -> jax.Array:
-    if _use_fast_layouts() and layer == 1:
+    if layer == 1:  # Cin=2
         return _conv_same_s2d(x, w)
     return _conv_same(x, w)
 
 
 def _tconv_decoder(x: jax.Array, w: jax.Array, layer: int) -> jax.Array:
-    if _use_fast_layouts() and layer >= 5:  # up5 (Cout=16), up6 (Cout=1)
+    if layer >= 5:  # up5 (Cout=16), up6 (Cout=1)
         return _tconv_subpixel(x, w)
     return _tconv_same(x, w)
 
@@ -310,353 +249,46 @@ def _conv_dilated_final(x: jax.Array, w: jax.Array) -> jax.Array:
     )
 
 
-# Like PALLAS_HEAD_MAX_BATCH: above this many (stem * tile) rows the XLA
-# encoder front won over the ROUND-3 kernel (docs/PERF.md round-4 study:
-# the unpack boundary + serialized DMAs). Superseded by _use_packed_unet
-# for the standard architecture.
-PALLAS_ENCODER_MAX_BATCH = 64
+def encoder_layer(
+    ly: dict, x: jax.Array, layer: int, stem_mode: int, compute_dtype
+) -> tuple[jax.Array, jax.Array]:
+    """down<layer>: returns (pre-activation `conv + bias` skip, output).
 
-
-def _use_pallas_encoder(params: Params, magnitude: jax.Array) -> bool:
-    """Fused enc1-enc3 kernels: accelerator fast path only.
-
-    The kernels hard-code the standard channel ladder (2->16->32->64) and
-    need quad/row-divisible shapes. `params` may carry a leading stem axis.
-    Large batches take the XLA front (see PALLAS_ENCODER_MAX_BATCH).
+    down1..down5: `act(bn_scale * (conv + bias) + bn_shift)`; down6 (the
+    bottleneck) is bias-only (Executable/spleeter.c:177-238).
     """
-    from spleeterrt_tpu.kernels import encoder
-
-    t, f, c = magnitude.shape[-3], magnitude.shape[-2], magnitude.shape[-1]
-    n_stems = jax.tree.leaves(params)[0].shape[0] if _is_stacked(params) else 1
-    batch = magnitude.shape[0] if magnitude.ndim == 4 else 1
-    ok = (
-        params["down1"]["w"].shape[-4:] == (5, 5, 2, 16)
-        and params["down2"]["w"].shape[-4:] == (5, 5, 16, 32)
-        and params["down3"]["w"].shape[-4:] == (5, 5, 32, 64)
-        and encoder.supports(t, f, c)
-    )
-    if FORCE_PALLAS_ENCODER is not None:
-        return FORCE_PALLAS_ENCODER and ok
-    ok = ok and n_stems * batch <= PALLAS_ENCODER_MAX_BATCH
-    return jax.default_backend() != "cpu" and ok
-
-
-def _trunk_tail(
-    params: Params,
-    x: jax.Array,  # enc3's activated output (batch, T/8, F/8, 64)
-    skips3: tuple[jax.Array, jax.Array, jax.Array],  # conv1..conv3 pre-act
-    stem_mode: int,
-    compute_dtype,
-) -> jax.Array:
-    """enc4..enc6 + up1..up5 -> up6's input (batch, T/2, F/2, 32)
-    = concat([conv1 skip, up5 output], channels)."""
     cast = lambda a: a.astype(compute_dtype)
-    skips = list(skips3)
-    for i in range(4, 7):
-        ly = params[f"down{i}"]
-        conv = _conv_encoder(x, cast(ly["w"]), i) + cast(ly["b"])
-        if i < 6:
-            skips.append(conv)
-            x = _act_encoder(
-                cast(ly["bn_scale"]) * conv + cast(ly["bn_shift"]), stem_mode
-            )
-        else:
-            x = conv  # bottleneck: bias only (spleeter.c:231-238)
-
-    for i in range(1, 6):
-        ly = params[f"up{i}"]
-        y = _tconv_decoder(x, cast(ly["w"]), i) + cast(ly["b"])
-        y = cast(ly["bn_scale"]) * _act_decoder(y, stem_mode) + cast(ly["bn_shift"])
-        # concat [skip, upsampled]; skips are pre-BN/act conv outputs
-        # (spleeter.c:239-288, README "Fast neural network inference").
-        x = jnp.concatenate([skips[5 - i], y], axis=-1)
-    return x
+    conv = _conv_encoder(x.astype(compute_dtype), cast(ly["w"]), layer) + cast(ly["b"])
+    if "bn_scale" not in ly:
+        return conv, conv
+    out = _act_encoder(cast(ly["bn_scale"]) * conv + cast(ly["bn_shift"]), stem_mode)
+    return conv, out
 
 
-def _unet_trunk(
-    params: Params, magnitude: jax.Array, stem_mode: int, compute_dtype
+def decoder_layer(
+    ly: dict, x: jax.Array, layer: int, stem_mode: int, compute_dtype
 ) -> jax.Array:
-    """Encoder + decoder through up5 (canonical XLA enc1-enc3 front)."""
-    x = magnitude.astype(compute_dtype)
+    """up<layer> (1..6): `bn_scale * act(tconv + bias) + bn_shift`
+    (activation BEFORE batch norm, Executable/spleeter.c:239-288)."""
     cast = lambda a: a.astype(compute_dtype)
-
-    skips = []
-    for i in range(1, 4):
-        ly = params[f"down{i}"]
-        conv = _conv_encoder(x, cast(ly["w"]), i) + cast(ly["b"])
-        skips.append(conv)
-        x = _act_encoder(
-            cast(ly["bn_scale"]) * conv + cast(ly["bn_shift"]), stem_mode
-        )
-    return _trunk_tail(params, x, tuple(skips), stem_mode, compute_dtype)
+    y = _tconv_decoder(x.astype(compute_dtype), cast(ly["w"]), layer) + cast(ly["b"])
+    return cast(ly["bn_scale"]) * _act_decoder(y, stem_mode) + cast(ly["bn_shift"])
 
 
-def _use_packed_unet(params: Params, magnitude: jax.Array, sigmoid: str) -> bool:
-    """Round-4 packed trunk: Pallas enc1-4 + XLA mid + Pallas up4/up5/head
-    with every boundary tensor staying in the quad-packed layout. Wins at
-    every batch size measured on v5e (docs/PERF.md round-4 table), so it is
-    the accelerator default whenever the standard architecture + shape
-    constraints hold."""
-    from spleeterrt_tpu.kernels import encoder, mask_head
-
-    t, f = magnitude.shape[-3], magnitude.shape[-2]
-    c = magnitude.shape[-1]
-    keys = ("down1", "down2", "down3", "down4", "up4", "up5", "up6", "up7")
-    if not all(k in params for k in keys):
-        return False
-    shapes_ok = (
-        sigmoid == "exact"
-        and params["down1"]["w"].shape[-4:] == (5, 5, 2, 16)
-        and params["down2"]["w"].shape[-4:] == (5, 5, 16, 32)
-        and params["down3"]["w"].shape[-4:] == (5, 5, 32, 64)
-        and params["down4"]["w"].shape[-4:] == (5, 5, 64, 128)
-        and params["up4"]["w"].shape[-4:] == (5, 5, 128, 32)
-        and params["up5"]["w"].shape[-4:] == (5, 5, 64, 16)
-        and params["up6"]["w"].shape[-4:] == (5, 5, 32, 1)
-        and params["up7"]["w"].shape[-4:] == (4, 4, 1, 2)
-        and encoder.supports4(t, f, c)
-        and t % 64 == 0 and f % 64 == 0
-        and (t // 2) % mask_head.TT == 0
-        and (f // 2) % 16 == 0
-    )
-    if FORCE_PACKED_UNET is not None:
-        return FORCE_PACKED_UNET and shapes_ok
-    return jax.default_backend() != "cpu" and shapes_ok
-
-
-def _mid_trunk_xla(
-    params: Params,
-    act4: jax.Array,  # (B, T/16, F/16, 128) enc4's activated output
-    skip4: jax.Array,  # (B, T/16, F/16, 128) enc4's pre-act skip
-    stem_mode: int,
-    compute_dtype,
+def mask_layer(
+    ly: dict, x: jax.Array, compute_dtype, sigmoid: str = "exact"
 ) -> jax.Array:
-    """enc5 + enc6 + up1..up3 in plain XLA (C >= 64: MXU-efficient there,
-    docs/PERF.md round-4: ~9 ms of the 75 ms XLA U-Net at S*B = 204).
-    Returns up3's post-BN output (B, T/8, F/8, 64), before the skip3
-    concat (the packed up4 kernel performs that concat as split-K)."""
-    cast = lambda a: a.astype(compute_dtype)
-    ly5 = params["down5"]
-    conv5 = _conv_encoder(act4, cast(ly5["w"]), 5) + cast(ly5["b"])
-    x = _act_encoder(
-        cast(ly5["bn_scale"]) * conv5 + cast(ly5["bn_shift"]), stem_mode
-    )
-    ly6 = params["down6"]
-    x = _conv_encoder(x, cast(ly6["w"]), 6) + cast(ly6["b"])  # bias only
-
-    skips = {1: conv5, 2: skip4}
-    for i in range(1, 4):
-        ly = params[f"up{i}"]
-        y = _tconv_decoder(x, cast(ly["w"]), i) + cast(ly["b"])
-        y = cast(ly["bn_scale"]) * _act_decoder(y, stem_mode) + cast(ly["bn_shift"])
-        x = jnp.concatenate([skips[i], y], axis=-1) if i < 3 else y
-    return x
-
-
-def _packed_unet_core(
-    stacked_params: Params,
-    magnitude: jax.Array,  # (B, T, F, 2), shared across stems
-    stem_mode: int,
-    compute_dtype,
-) -> jax.Array:
-    """Packed multi-stem forward -> the head's PACKED mask output
-    (S*B, F/32 groups, T/2, 128); unpack with tail.unpack_mask (NHWC) or
-    tail.unpack_mask_cd (the fused iSTFT's [c, d] layout, free).
-
-    Dataflow (reference semantics Executable/spleeter.c:177-301):
-    Pallas enc1-4 (quad-packed, skips stay packed) -> XLA enc5..up3 on the
-    small deep tensors -> Pallas up4/up5 (split-K concats, packed) ->
-    Pallas head.
-    """
-    from spleeterrt_tpu.kernels import encoder, tail
-
-    s = jax.tree.leaves(stacked_params)[0].shape[0]
-    b, t, f, _ = magnitude.shape
-    dt = jnp.dtype(compute_dtype)
-    enc_act = "elu" if stem_mode == STEM_MODE_4 else "leaky"
-    dec_act = "elu" if stem_mode == STEM_MODE_4 else "relu"
-
-    (s1pk, s2pk, s3pk, s4pk), act4_pk = encoder.encoder_packed(
-        {k: stacked_params[k] for k in ("down1", "down2", "down3", "down4")},
-        magnitude, n_layers=4, act=enc_act, compute_dtype=dt,
-    )
-    act4 = encoder.quad_unpack(act4_pk, 128).reshape(s, b, t // 16, f // 16, 128)
-    skip4 = encoder.quad_unpack(s4pk, 128).reshape(s, b, t // 16, f // 16, 128)
-    up3out = jax.vmap(
-        lambda p, x, s4: _mid_trunk_xla(p, x, s4, stem_mode, dt)
-    )(stacked_params, act4, skip4)  # (S, B, T/8, F/8, 64)
-    up3pk = tail.quad_pack_nhwc(
-        up3out.reshape(s * b, t // 8, f // 8, 64), 64
-    ).astype(dt)
-
-    def pack_up(w, csrc):
-        return (
-            jax.vmap(lambda ww: tail._pack_w_up(ww[:, :, :csrc, :], csrc, dt))(w),
-            jax.vmap(lambda ww: tail._pack_w_up(ww[:, :, csrc:, :], csrc, dt))(w),
-        )
-
-    ly = stacked_params["up4"]
-    w_skip, w_prev = pack_up(ly["w"], 64)
-    epi = jax.vmap(tail._up_epilogue)(ly["b"], ly["bn_scale"], ly["bn_shift"])
-    up4pk = tail.up_shallow(
-        tail.pad_pk(s3pk), tail.pad_pk(up3pk), w_skip, w_prev, epi,
-        t_in=t // 8, act=dec_act, out_dtype=dt,
-    )
-
-    ly = stacked_params["up5"]
-    w_skip, w_prev = pack_up(ly["w"], 32)
-    epi = jax.vmap(tail._up_epilogue)(ly["b"], ly["bn_scale"], ly["bn_shift"])
-    up5pk = tail.up_shallow(
-        tail.pad_pk(s2pk), tail.pad_pk(up4pk), w_skip, w_prev, epi,
-        t_in=t // 4, act=dec_act, out_dtype=dt,
-    )
-
-    ly6, ly7 = stacked_params["up6"], stacked_params["up7"]
-    return tail.head_packed(
-        tail.pad_pk_head(s1pk), tail.pad_pk_head(up5pk),
-        ly6["w"], ly6["b"], ly6["bn_scale"], ly6["bn_shift"],
-        ly7["w"], ly7["b"],
-        t2=t // 2, act=dec_act, compute_dtype=dt,
-    )
-
-
-def _packed_unet(
-    stacked_params: Params,
-    magnitude: jax.Array,
-    stem_mode: int,
-    compute_dtype,
-) -> jax.Array:
-    """Fully packed multi-stem forward -> (S, B, T, F, 2) NHWC masks."""
-    from spleeterrt_tpu.kernels import tail
-
-    s = jax.tree.leaves(stacked_params)[0].shape[0]
-    b, t, f, _ = magnitude.shape
-    masks_packed = _packed_unet_core(
-        stacked_params, magnitude, stem_mode, compute_dtype
-    )
-    masks = tail.unpack_mask(masks_packed, t // 2, f // 2)
-    return masks.reshape(s, b, t, f, 2)
-
-
-def multi_stem_masks_cd(
-    stacked_params: Params,
-    magnitude: jax.Array,  # (B, T, F, 2), shared across stems
-    stem_mode: int = STEM_MODE_4,
-    compute_dtype=jnp.bfloat16,
-    sigmoid: str = "exact",
-    layout: str = "cd",
-) -> jax.Array | None:
-    """Masks in the fused iSTFT's [c, d] layout, or None when the packed
-    U-Net path does not apply (caller falls back to NHWC masks + one host
-    transpose). Returns (S, 2ch, B*T frames, 64, bin_limit//64) compact
-    in-band lanes with c + 64 d = bin
-    (kernels/stft_fused.masked_istft4096_cd's mask contract); the tile
-    batch B must be the track's time-ordered tile sequence.
-
-    layout="dcflat" returns (S, 2ch, B*T, bin_limit) in the iSTFT's flat
-    d-major layout instead (64*d + c): the same permute but with
-    contiguous-run writes, ~2x faster at production shape -- use it when
-    the masks feed masked_istft4096_cd directly; "cd" when the caller
-    multiplies them against the packed spectrum elementwise."""
-    from spleeterrt_tpu.kernels import tail
-
-    if not _use_packed_unet(stacked_params, magnitude, sigmoid):
-        return None
-    s = jax.tree.leaves(stacked_params)[0].shape[0]
-    b, t, f, _ = magnitude.shape
-    masks_packed = _packed_unet_core(
-        stacked_params, magnitude, stem_mode, compute_dtype
-    )
-    unpack = (
-        tail.unpack_mask_dc_flat if layout == "dcflat" else tail.unpack_mask_cd
-    )
-    return unpack(masks_packed, s, t // 2, f // 2)
-
-
-def _multi_stem_trunk(
-    stacked_params: Params,
-    magnitude: jax.Array,  # (B, T, F, 2), shared across stems
-    stem_mode: int,
-    compute_dtype,
-    pallas_encoder: bool = True,
-) -> jax.Array:
-    """All-stems trunk -> (S, B, T/2, F/2, 32).
-
-    On accelerators the enc1-enc3 front runs as fused Pallas kernels with
-    stems folded into the batch grid axis (kernels/encoder.py); the
-    remaining layers stay on XLA convs (C >= 128, already MXU-efficient).
-    """
-    if pallas_encoder and _use_pallas_encoder(stacked_params, magnitude):
-        from spleeterrt_tpu.kernels import encoder
-
-        s = jax.tree.leaves(stacked_params)[0].shape[0]
-        b = magnitude.shape[0]
-        act = "elu" if stem_mode == STEM_MODE_4 else "leaky"
-        skip1, skip2, skip3, act3 = encoder.encoder3_pallas(
-            {k: stacked_params[k] for k in ("down1", "down2", "down3")},
-            magnitude,
-            act=act,
-            compute_dtype=compute_dtype,
-        )
-        unstack = lambda a: a.reshape(s, b, *a.shape[1:])
-        return jax.vmap(
-            lambda p, x, s1, s2, s3: _trunk_tail(
-                p, x, (s1, s2, s3), stem_mode, compute_dtype
-            )
-        )(
-            stacked_params,
-            unstack(act3),
-            unstack(skip1),
-            unstack(skip2),
-            unstack(skip3),
-        )
-    return jax.vmap(
-        lambda p: _unet_trunk(p, magnitude, stem_mode, compute_dtype)
-    )(stacked_params)
-
-
-def _canonical_head(
-    params: Params, x: jax.Array, stem_mode: int, compute_dtype, sigmoid: str
-) -> jax.Array:
-    """up6 + up7 + sigmoid in plain XLA (the oracle-parity formulation)."""
-    cast = lambda a: a.astype(compute_dtype)
-    ly6, ly7 = params["up6"], params["up7"]
-    y = _tconv_decoder(x, cast(ly6["w"]), 6) + cast(ly6["b"])
-    y = cast(ly6["bn_scale"]) * _act_decoder(y, stem_mode) + cast(ly6["bn_shift"])
-    logits = _conv_dilated_final(y, cast(ly7["w"])).astype(
-        jnp.float32
-    ) + ly7["b"].astype(jnp.float32)
+    """up7: sigmoid(final dilated conv + bias), logits promoted to fp32."""
+    logits = _conv_dilated_final(
+        x.astype(compute_dtype), ly["w"].astype(compute_dtype)
+    ).astype(jnp.float32) + ly["b"].astype(jnp.float32)
     if sigmoid == "lut":
         return fast_sigmoid(logits)
     return jax.nn.sigmoid(logits)
 
 
-def _pallas_head(
-    stacked_params: Params, x: jax.Array, stem_mode: int, n_stems: int
-) -> jax.Array:
-    """Fused decoder tail; x is (S*B, T2, F2, 32), params carry a leading
-    stem axis. Returns NHWC (S*B, T, F, 2)."""
-    from spleeterrt_tpu.kernels import mask_head
-
-    ly6, ly7 = stacked_params["up6"], stacked_params["up7"]
-    mask_cf = mask_head.mask_head_pallas(
-        x,
-        ly6["w"], ly6["b"], ly6["bn_scale"], ly6["bn_shift"],
-        ly7["w"], ly7["b"],
-        act="elu" if stem_mode == STEM_MODE_4 else "relu",
-        n_stems=n_stems,
-    )
-    # Channel-first -> NHWC for API parity; inside a jit XLA folds this
-    # into downstream transposes (tiles_to_frames wants channel-first).
-    return mask_cf.transpose(0, 2, 3, 1)
-
-
 @functools.partial(
-    jax.jit,
-    static_argnames=(
-        "stem_mode", "compute_dtype", "sigmoid", "pallas_head",
-        "pallas_encoder",
-    ),
+    jax.jit, static_argnames=("stem_mode", "compute_dtype", "sigmoid")
 )
 def unet_forward(
     params: Params,
@@ -664,34 +296,25 @@ def unet_forward(
     stem_mode: int = STEM_MODE_4,
     compute_dtype=jnp.float32,
     sigmoid: str = "exact",
-    pallas_head: bool = True,
-    pallas_encoder: bool = True,
 ) -> jax.Array:
     """Magnitude (batch, T, F, 2) -> soft mask (batch, T, F, 2) in [0, 1].
 
     T and F must be divisible by 64 (six stride-2 halvings). Everything runs
-    in `compute_dtype` (bf16 on the MXU by default at the pipeline level; the
-    TPU accumulates bf16 matmuls in fp32 internally); only the final logits
-    are promoted to fp32 for the sigmoid. fp32 `compute_dtype` gives the
-    oracle-parity path.
+    in `compute_dtype` (bf16 for production, with fp32 accumulation in the
+    convs); only the final logits are promoted to fp32 for the sigmoid.
+    fp32 `compute_dtype` gives the oracle-parity path.
     """
-    if (
-        pallas_head and pallas_encoder
-        and _use_packed_unet(params, magnitude, sigmoid)
-    ):
-        stacked = jax.tree.map(lambda a: a[None], params)
-        mag = magnitude if magnitude.ndim == 4 else magnitude[None]
-        out = _packed_unet(stacked, mag, stem_mode, compute_dtype)[0]
-        return out if magnitude.ndim == 4 else out[0]
-    if pallas_encoder and _use_pallas_encoder(params, magnitude):
-        stacked = jax.tree.map(lambda a: a[None], params)
-        x = _multi_stem_trunk(stacked, magnitude, stem_mode, compute_dtype)[0]
-    else:
-        x = _unet_trunk(params, magnitude, stem_mode, compute_dtype)
-    if pallas_head and _use_pallas_head(params, magnitude, sigmoid):
-        stacked = jax.tree.map(lambda a: a[None], params)
-        return _pallas_head(stacked, x, stem_mode, 1)
-    return _canonical_head(params, x, stem_mode, compute_dtype, sigmoid)
+    x = magnitude
+    skips = []
+    for i in range(1, 7):
+        conv, x = encoder_layer(params[f"down{i}"], x, i, stem_mode, compute_dtype)
+        skips.append(conv)
+    for i in range(1, 7):
+        y = decoder_layer(params[f"up{i}"], x, i, stem_mode, compute_dtype)
+        # concat [skip, upsampled]; skips are pre-BN/act conv outputs
+        # (spleeter.c:239-288, README "Fast neural network inference").
+        x = jnp.concatenate([skips[5 - i], y], axis=-1) if i < 6 else y
+    return mask_layer(params["up7"], x, compute_dtype, sigmoid)
 
 
 def multi_stem_forward(
@@ -700,54 +323,13 @@ def multi_stem_forward(
     stem_mode: int = STEM_MODE_4,
     compute_dtype=jnp.float32,
     sigmoid: str = "exact",
-    pallas_head: bool = True,
-    pallas_encoder: bool = True,
 ) -> jax.Array:
     """Run S stacked U-Nets over one magnitude batch -> (S, batch, T, F, 2).
 
     The reference runs one net per pthread (VST/Source/Spleeter4Stems.c:135,
-    TASK_NB=5); here the stem axis is a vmap so XLA fuses all stems into
-    batched/grouped convolutions on the MXU. On accelerators the decoder
-    tail runs as one Pallas launch with stems folded into the batch grid
-    axis (kernels/mask_head.py).
-
-    Pass `pallas_head=False, pallas_encoder=False` from any path that is
-    differentiated: `pallas_call` has no reverse-mode AD rule, so the
-    training loss must stay on the canonical XLA formulation
-    (core/train.py::separation_loss).
+    TASK_NB=5); here the stem axis is a vmap, so XLA batches all stems into
+    the same convolutions.
     """
-    if (
-        pallas_head and pallas_encoder
-        and _use_packed_unet(stacked_params, magnitude, sigmoid)
-    ):
-        mag = magnitude if magnitude.ndim == 4 else magnitude[None]
-        out = _packed_unet(stacked_params, mag, stem_mode, compute_dtype)
-        return out if magnitude.ndim == 4 else out[:, 0]
-    use_head = pallas_head and _use_pallas_head(
-        stacked_params, magnitude, sigmoid
-    )
-    use_enc = pallas_encoder and _use_pallas_encoder(stacked_params, magnitude)
-    if use_head or use_enc:
-        # Stems folded into the Pallas batch grid: the fused kernels are not
-        # vmappable, so the trunk handles the stem axis itself.
-        trunk = _multi_stem_trunk(
-            stacked_params, magnitude, stem_mode, compute_dtype, pallas_encoder
-        )  # (S, B, T2, F2, 32)
-        s, b = trunk.shape[:2]
-        if use_head:
-            masks = _pallas_head(
-                stacked_params, trunk.reshape(s * b, *trunk.shape[2:]),
-                stem_mode, s,
-            )
-            return masks.reshape(s, b, *masks.shape[1:])
-        return jax.vmap(
-            lambda p, x: _canonical_head(p, x, stem_mode, compute_dtype, sigmoid)
-        )(stacked_params, trunk)
-    # Both gates are off at the stacked level; force them off inside the
-    # vmap too (the per-stem trace would re-evaluate the batch-size gate
-    # without the stem axis and try to vmap a Pallas call, which the
-    # manual-DMA kernels do not support).
-    fwd = lambda p: unet_forward(
-        p, magnitude, stem_mode, compute_dtype, sigmoid, False, False,
-    )
-    return jax.vmap(fwd)(stacked_params)
+    return jax.vmap(
+        lambda p: unet_forward(p, magnitude, stem_mode, compute_dtype, sigmoid)
+    )(stacked_params)

@@ -5,8 +5,8 @@ Reference: the offline frame-block driver `processMT`
 (Executable/main.c:779-970). The C code tiles the spectrogram into
 `timeStep`-frame windows and distributes contiguous tile ranges over worker
 threads, each owning a full U-Net replica; here every tile is one row of a
-batch axis and a single fused forward pass covers all tiles (and, via vmap,
-all stems) on the MXU.
+batch axis and a single forward pass covers all tiles (and, via vmap, all
+stems).
 
 Scale conventions: with core/transform.py's windows, `abs(stft(x))` already
 equals the `hypotf(re, im) * FFTSIZE` magnitude the C driver computes
@@ -32,19 +32,6 @@ def num_tiles(n_frames: int, time_step: int) -> int:
     """ceil; the reference always runs one (possibly zero-padded) tail tile
     (Executable/main.c:496-537)."""
     return max(1, -(-n_frames // time_step))
-
-
-def _fused_stft_ok(cfg: SeparatorConfig) -> bool:
-    """Gate for the fused Pallas STFT path: kernels/stft_fused.py hard-codes
-    FFT 4096 / hop 1024 (LAP 4); any other transform config must fall back
-    to the hop-agnostic canonical formulation."""
-    from spleeterrt_tpu.kernels import stft_fused
-
-    return (
-        cfg.transform.fft_size == stft_fused.N
-        and cfg.transform.hop == stft_fused.HOP
-        and transform._use_fused_stft()
-    )
 
 
 def spec_to_tiles(spec: jax.Array, cfg: SeparatorConfig) -> jax.Array:
@@ -81,26 +68,20 @@ def apply_mask(
 
 def compute_masks(
     params: Params, spec: jax.Array, cfg: SeparatorConfig, stem_mode: int,
-    pallas: bool = True,
 ) -> jax.Array:
     """Single-net masks for every frame: (2, n_frames, bin_limit)."""
     tiles = spec_to_tiles(spec, cfg)
-    masks = unet_forward(
-        params, tiles, stem_mode, cfg.compute_dtype, cfg.sigmoid,
-        pallas_head=pallas, pallas_encoder=pallas,
-    )
+    masks = unet_forward(params, tiles, stem_mode, cfg.compute_dtype, cfg.sigmoid)
     return tiles_to_frames(masks, spec.shape[-2])
 
 
 def compute_masks_multi(
     stacked_params: Params, spec: jax.Array, cfg: SeparatorConfig, stem_mode: int,
-    pallas: bool = True,
 ) -> jax.Array:
-    """S stacked nets -> (S, 2, n_frames, bin_limit) in one fused pass."""
+    """S stacked nets -> (S, 2, n_frames, bin_limit) in one batched pass."""
     tiles = spec_to_tiles(spec, cfg)
     masks = multi_stem_forward(
-        stacked_params, tiles, stem_mode, cfg.compute_dtype, cfg.sigmoid,
-        pallas_head=pallas, pallas_encoder=pallas,
+        stacked_params, tiles, stem_mode, cfg.compute_dtype, cfg.sigmoid
     )
     return jax.vmap(tiles_to_frames, in_axes=(0, None))(masks, spec.shape[-2])
 
@@ -113,206 +94,40 @@ def compute_masks_multi(
 # ---------------------------------------------------------------------------
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "pallas"))
+@functools.partial(jax.jit, static_argnames=("cfg",))
 def separate_2stem(
-    params: Params, audio: jax.Array, cfg: SeparatorConfig,
-    pallas: bool = True,
+    params: Params, audio: jax.Array, cfg: SeparatorConfig
 ) -> jax.Array:
     """vocals = istft(mask * spec); accompaniment = input - vocals in the time
     domain (Executable/main.c:779-808). Returns (2, 2ch, out_len)."""
     data_size = audio.shape[-1]
-    if pallas and _fused_stft_ok(cfg):
-        from spleeterrt_tpu.kernels import stft_fused
-
-        tcfg = cfg.transform
-        n_out = transform.num_output_frames(data_size, tcfg)
-        n_comp = transform.num_computed_frames(data_size, tcfg)
-        nt = num_tiles(n_out, cfg.time_step)
-        n_req = nt * cfg.time_step
-        s_r, s_i = stft_fused.stft4096_packed(
-            audio, transform.analysis_window(tcfg.fft_size), n_comp, n_req
-        )
-        mag = stft_fused.packed_magnitude(s_r, s_i, cfg.bin_limit)
-        tiles = mag.reshape(2, nt, cfg.time_step, cfg.bin_limit).transpose(
-            1, 2, 3, 0
-        )
-        from spleeterrt_tpu.core import model as model_mod
-
-        stacked1 = jax.tree.map(lambda a: a[None], params)
-        masks_cd = model_mod.multi_stem_masks_cd(
-            stacked1, tiles, STEM_MODE_2, cfg.compute_dtype, cfg.sigmoid
-        )
-        if masks_cd is not None:
-            vocal = stft_fused.masked_istft4096_cd(
-                s_r, s_i, masks_cd, jnp.asarray([cfg.unaffected_weight]),
-                cfg.bin_limit, transform.synthesis_window(tcfg), n_out,
-            )[0]
-        else:
-            masks = unet_forward(
-                params, tiles, STEM_MODE_2, cfg.compute_dtype, cfg.sigmoid
-            )
-            masks_cf = masks.transpose(3, 0, 1, 2).reshape(
-                1, 2, n_req, cfg.bin_limit
-            )
-            vocal = stft_fused.masked_istft4096_packed(
-                s_r, s_i, masks_cf, jnp.asarray([cfg.unaffected_weight]),
-                cfg.bin_limit, transform.synthesis_window(tcfg), n_out,
-            )[0]
-    else:
-        spec = transform.stft(audio, cfg.transform, data_size)
-        masks = compute_masks(params, spec, cfg, STEM_MODE_2, pallas)
-        vocal = transform.istft(
-            apply_mask(spec, masks, cfg), cfg.transform, pallas=pallas
-        )
+    spec = transform.stft(audio, cfg.transform, data_size)
+    masks = compute_masks(params, spec, cfg, STEM_MODE_2)
+    vocal = transform.istft(apply_mask(spec, masks, cfg), cfg.transform)
     pad = vocal.shape[-1] - data_size
     residual = jnp.pad(audio, ((0, 0), (0, pad))) - vocal
     return jnp.stack([vocal, residual])
 
 
-def _masks_cd_tracks(
-    params: Params, tiles: jax.Array, stem_mode: int, cfg: SeparatorConfig,
-    b: int, rows: int, n_req: int, n_pad: int,
-) -> jax.Array:
-    """Single-net [c, d] masks for a (b tracks, nt)-ordered tile batch ->
-    (b*rows, n_pad, 64, bin_limit//64) aligned with the packed spectrum's
-    row order (track-major, channel-minor). Packed U-Net head when it
-    applies, canonical forward + one transpose pass otherwise."""
-    from spleeterrt_tpu.core import model as model_mod
-    from spleeterrt_tpu.kernels import stft_fused
-
-    stacked1 = jax.tree.map(lambda a: a[None], params)
-    mcd = model_mod.multi_stem_masks_cd(
-        stacked1, tiles, stem_mode, cfg.compute_dtype, cfg.sigmoid
-    )
-    if mcd is not None:
-        d = mcd.shape[-1]
-        return (
-            mcd.reshape(1, rows, b, n_req, 64, d)
-            .transpose(0, 2, 1, 3, 4, 5)
-            .reshape(b * rows, n_req, 64, d)
-        )
-    masks = unet_forward(
-        params, tiles, stem_mode, cfg.compute_dtype, cfg.sigmoid
-    )  # (b*nt, T, F, 2ch)
-    bnt, t, f, _ = masks.shape
-    masks_cf = (
-        masks.reshape(b, bnt // b, t, f, rows)
-        .transpose(0, 4, 1, 2, 3)
-        .reshape(1, b * rows, n_req, f)
-    )
-    return stft_fused.masks_flat_to_cd(masks_cf, n_pad)[0]
-
-
-def _separate_3stem_fused_tracks(
-    params4: Params, params2: Params, tracks: jax.Array, cfg: SeparatorConfig,
-) -> jax.Array:
-    """Fused two-pass 3-stem graph (Executable/main.c:845-970) over a
-    track batch (B, 2ch, n) -> (B, 3, 2ch, out_len): one Pallas STFT, two
-    U-Net mask passes, and ONE 3-stem batched masked-iSTFT.
-
-    The canonical graph runs three full iSTFTs on the original/residual
-    spectra. Here every stem is re-expressed as a mask on the ORIGINAL
-    packed spectrum, so one kernel launch emits all three audio streams:
-
-      drums    = istft(dm . s               | uw . s        out of band)
-      vocals   = istft((1-dm) vm . s        | uw (1-uw) . s out of band)
-      residual = istft((1-dm) . s           | (1-uw) . s    out of band)
-      accompaniment = residual - vocals  (time domain, main.c:955-967)
-
-    The identities hold exactly because masks scale the complex spectrum
-    elementwise by a real factor, so pass 2's input magnitude is also
-    computed in packed [c, d] form (|(1-dm) . s| bin by bin) -- the
-    residual spectrum never exists in HBM. The track batch folds into the
-    kernels' row axis exactly as in `separate_nstem_batch`. Parity:
-    tests/test_stft_fused.py::test_separate_3stem_fused_equals_canonical
-    and ::test_separate_3stem_batch_fused_equals_per_track.
-    """
-    from spleeterrt_tpu.kernels import stft_fused
-
-    tcfg = cfg.transform
-    b, rows, data_size = tracks.shape
-    n_out = transform.num_output_frames(data_size, tcfg)
-    n_comp = transform.num_computed_frames(data_size, tcfg)
-    nt = num_tiles(n_out, cfg.time_step)
-    n_req = nt * cfg.time_step
-    f = cfg.bin_limit
-    t = cfg.time_step
-    mask_d = f // 64
-
-    s_r, s_i = stft_fused.stft4096_packed(
-        tracks.reshape(b * rows, data_size),
-        transform.analysis_window(tcfg.fft_size), n_comp, n_req,
-    )
-    n_pad = s_r.shape[1]  # == n_req (time_step is a multiple of 32)
-    mag = stft_fused.packed_magnitude(s_r, s_i, f)
-    tiles = (
-        mag.reshape(b, rows, nt, t, f)
-        .transpose(0, 2, 3, 4, 1)
-        .reshape(b * nt, t, f, rows)
-    )
-    dm = _masks_cd_tracks(params4, tiles, STEM_MODE_4, cfg, b, rows, n_req, n_pad)
-
-    uw = cfg.unaffected_weight
-    inv = (1.0 - dm).astype(jnp.float32)  # residual in-band factor
-    # Pass-2 magnitude straight from the packed residual: the elementwise
-    # multiply fuses into the magnitude's transpose+hypot pass.
-    r_r = s_r[..., :mask_d] * inv
-    r_i = s_i[..., :mask_d] * inv
-    mag2 = jnp.sqrt(r_r * r_r + r_i * r_i).transpose(0, 1, 3, 2).reshape(
-        b * rows, n_pad, f
-    )
-    tiles2 = (
-        mag2[:, :n_req].reshape(b, rows, nt, t, f)
-        .transpose(0, 2, 3, 4, 1)
-        .reshape(b * nt, t, f, rows)
-    )
-    vm = _masks_cd_tracks(params2, tiles2, STEM_MODE_2, cfg, b, rows, n_req, n_pad)
-
-    masks3 = jnp.stack([dm.astype(jnp.float32), inv * vm, inv])
-    out_band = jnp.asarray([uw, uw * (1.0 - uw), 1.0 - uw], jnp.float32)
-    stems = stft_fused.masked_istft4096_cd(
-        s_r, s_i, masks3, out_band, f, transform.synthesis_window(tcfg),
-        n_out,
-    )  # (3, b*rows, out_len)
-    drums, vocals, residual = stems
-    out = jnp.stack([drums, vocals, residual - vocals])
-    out_len = out.shape[-1]
-    return out.reshape(3, b, rows, out_len).transpose(1, 0, 2, 3)
-
-
-def _separate_3stem_fused(
-    params4: Params, params2: Params, audio: jax.Array, cfg: SeparatorConfig,
-) -> jax.Array:
-    """Single-track fused 3-stem graph: the B = 1 case of
-    `_separate_3stem_fused_tracks` (every batch interleave is a no-op)."""
-    return _separate_3stem_fused_tracks(params4, params2, audio[None], cfg)[0]
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "pallas"))
+@functools.partial(jax.jit, static_argnames=("cfg",))
 def separate_3stem(
-    params4: Params, params2: Params, audio: jax.Array, cfg: SeparatorConfig,
-    pallas: bool = True,
+    params4: Params, params2: Params, audio: jax.Array, cfg: SeparatorConfig
 ) -> jax.Array:
     """Two-pass graph (Executable/main.c:845-970): pass 1 (4-stem-family net,
     ELU) masks drums; the FREQUENCY-domain residual feeds pass 2 (2-stem net)
     for vocals; accompaniment = istft(residual) - vocals in time.
     Returns (3, 2ch, out_len) ordered (drums, vocals, accompaniment)."""
     data_size = audio.shape[-1]
-    if pallas and _fused_stft_ok(cfg):
-        return _separate_3stem_fused(params4, params2, audio, cfg)
     spec = transform.stft(audio, cfg.transform, data_size)
-    drum_masks = compute_masks(params4, spec, cfg, STEM_MODE_4, pallas)
+    drum_masks = compute_masks(params4, spec, cfg, STEM_MODE_4)
     drum_spec = apply_mask(spec, drum_masks, cfg)
     residual_spec = spec - drum_spec
-    drums = transform.istft(drum_spec, cfg.transform, pallas=pallas)
-    vocal_masks = compute_masks(params2, residual_spec, cfg, STEM_MODE_2, pallas)
+    drums = transform.istft(drum_spec, cfg.transform)
+    vocal_masks = compute_masks(params2, residual_spec, cfg, STEM_MODE_2)
     vocals = transform.istft(
-        apply_mask(residual_spec, vocal_masks, cfg), cfg.transform,
-        pallas=pallas,
+        apply_mask(residual_spec, vocal_masks, cfg), cfg.transform
     )
-    accompaniment = (
-        transform.istft(residual_spec, cfg.transform, pallas=pallas) - vocals
-    )
+    accompaniment = transform.istft(residual_spec, cfg.transform) - vocals
     return jnp.stack([drums, vocals, accompaniment])
 
 
@@ -322,254 +137,73 @@ OUT_BAND_4 = (0.25, 0.0, 0.25, 0.25)  # drums, bass, accompaniment, vocals
 OUT_BAND_5 = (0.25, 0.25, 0.0, 0.25, 0.25)  # vocals, drums, bass, piano, other
 
 
-def _separate_nstem_fused(
-    stacked_params: Params,
-    audio: jax.Array,
-    cfg: SeparatorConfig,
-    out_band: tuple[float, ...],
-) -> jax.Array:
-    """Fully fused accelerator graph (kernels/stft_fused.py): one Pallas
-    STFT (audio read once, spectrum written packed), magnitude tiles read
-    straight off the packed in-band rows, and one Pallas masked-iSTFT that
-    emits overlap-added AUDIO -- the per-stem masked spectrogram and frame
-    tensors never exist in HBM. Output is bit-compatible with the canonical
-    formulation below (tests/test_stft_fused.py)."""
-    from spleeterrt_tpu.kernels import stft_fused
-
-    tcfg = cfg.transform
-    data_size = audio.shape[-1]
-    n_out = transform.num_output_frames(data_size, tcfg)
-    n_comp = transform.num_computed_frames(data_size, tcfg)
-    nt = num_tiles(n_out, cfg.time_step)
-    n_req = nt * cfg.time_step  # tile-aligned frame rows (zeros past n_comp)
-
-    s_r, s_i = stft_fused.stft4096_packed(
-        audio, transform.analysis_window(tcfg.fft_size), n_comp, n_req
-    )
-    mag = stft_fused.packed_magnitude(s_r, s_i, cfg.bin_limit)
-    tiles = mag.reshape(2, nt, cfg.time_step, cfg.bin_limit).transpose(
-        1, 2, 3, 0
-    )
-    from spleeterrt_tpu.core import model as model_mod
-
-    masks_cd = model_mod.multi_stem_masks_cd(
-        stacked_params, tiles, STEM_MODE_4, cfg.compute_dtype, cfg.sigmoid
-    )
-    if masks_cd is not None:
-        # Packed U-Net head -> the iSTFT's [c, d] mask layout directly
-        # (the bin-ordered mask tensor never exists in HBM). The flat
-        # d-major variant measured SLOWER end to end (docs/PERF.md round-5
-        # negative results), so the [c, d] unpack stays.
-        return stft_fused.masked_istft4096_cd(
-            s_r, s_i, masks_cd, jnp.asarray(out_band), cfg.bin_limit,
-            transform.synthesis_window(tcfg), n_out,
-        )
-    masks = multi_stem_forward(
-        stacked_params, tiles, STEM_MODE_4, cfg.compute_dtype, cfg.sigmoid
-    )  # (S, nt, T, F, 2)
-    s = masks.shape[0]
-    masks_cf = masks.transpose(0, 4, 1, 2, 3).reshape(
-        s, 2, n_req, cfg.bin_limit
-    )
-    return stft_fused.masked_istft4096_packed(
-        s_r, s_i, masks_cf, jnp.asarray(out_band), cfg.bin_limit,
-        transform.synthesis_window(tcfg), n_out,
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "out_band", "pallas"))
+@functools.partial(jax.jit, static_argnames=("cfg", "out_band"))
 def separate_nstem(
     stacked_params: Params,
     audio: jax.Array,
     cfg: SeparatorConfig,
     out_band: tuple[float, ...],
-    pallas: bool = True,
 ) -> jax.Array:
     """S independent nets over the same input, one mask per stem -- the VST
     engine's graph (VST/Source/Spleeter4Stems.c:114-147) run offline,
     generalized to any stem count (e.g. upstream Spleeter's 5stems family).
     Returns (S, 2ch, out_len).
-
-    `pallas=False` forces the pure-XLA formulation end to end -- required
-    when the caller auto-partitions this graph with GSPMD sharding
-    constraints (XLA cannot shard custom calls); the shard_map entry points
-    in parallel/mesh.py re-enable the kernels on per-device shards.
     """
     data_size = audio.shape[-1]
-    if pallas and _fused_stft_ok(cfg):
-        return _separate_nstem_fused(stacked_params, audio, cfg, out_band)
-
     spec = transform.stft(audio, cfg.transform, data_size)
-    masks = compute_masks_multi(
-        stacked_params, spec, cfg, STEM_MODE_4, pallas
-    )
+    masks = compute_masks_multi(stacked_params, spec, cfg, STEM_MODE_4)
     uw = jnp.asarray(out_band)
-
-    if (
-        pallas
-        and cfg.transform.fft_size == 4096
-        and transform._use_matmul_fft()
-        and jax.default_backend() != "cpu"
-    ):
-        # Fused Pallas path: mask multiply + inverse FFT + synthesis window
-        # in VMEM; the per-stem masked complex spectrogram never hits HBM.
-        from spleeterrt_tpu.kernels import pallas_fft
-
-        frames = pallas_fft.masked_irfft4096_pallas(
-            spec, masks, uw, cfg.bin_limit,
-            transform.synthesis_window_key(cfg.transform),
-        )
-        return jax.vmap(lambda fr: transform.overlap_add(fr, cfg.transform))(
-            frames
-        )
 
     # vmap over stems; uw enters as a traced scalar per stem.
     def one(mask, w):
         in_band = spec[..., : cfg.bin_limit] * mask.astype(spec.real.dtype)
         oob = spec[..., cfg.bin_limit :] * w.astype(spec.real.dtype)
         return transform.istft(
-            jnp.concatenate([in_band, oob], axis=-1), cfg.transform,
-            pallas=pallas,
+            jnp.concatenate([in_band, oob], axis=-1), cfg.transform
         )
 
     return jax.vmap(one)(masks, uw)
 
 
-def _nstem_batch_fused(
-    stacked_params: Params,
-    tracks: jax.Array,  # (B, 2, n) equal-length pre-padded tracks
-    cfg: SeparatorConfig,
-    out_band: tuple[float, ...],
-    stem_mode: int,
-) -> jax.Array:
-    """Fused body of `separate_nstem_batch` -> (B, S, 2, out_len)."""
-    b, rows, data_size = tracks.shape
-    from spleeterrt_tpu.kernels import stft_fused
-
-    tcfg = cfg.transform
-    n_out = transform.num_output_frames(data_size, tcfg)
-    n_comp = transform.num_computed_frames(data_size, tcfg)
-    nt = num_tiles(n_out, cfg.time_step)
-    n_req = nt * cfg.time_step
-    f = cfg.bin_limit
-    t = cfg.time_step
-
-    s_r, s_i = stft_fused.stft4096_packed(
-        tracks.reshape(b * rows, data_size),
-        transform.analysis_window(tcfg.fft_size), n_comp, n_req,
-    )
-    mag = stft_fused.packed_magnitude(s_r, s_i, f)  # (B*2, n_req, F)
-    tiles = (
-        mag.reshape(b, rows, nt, t, f)
-        .transpose(0, 2, 3, 4, 1)
-        .reshape(b * nt, t, f, rows)
-    )
-    from spleeterrt_tpu.core import model as model_mod
-
-    masks_cd = model_mod.multi_stem_masks_cd(
-        stacked_params, tiles, stem_mode, cfg.compute_dtype, cfg.sigmoid
-    )
-    if masks_cd is not None:
-        s = masks_cd.shape[0]
-        # Lane count is the COMPACT in-band d extent (bin_limit // 64), not
-        # the full 32-lane low half (regression: bench_batch r04).
-        d = masks_cd.shape[-1]
-        masks_cd = (
-            masks_cd.reshape(s, rows, b, n_req, 64, d)
-            .transpose(0, 2, 1, 3, 4, 5)
-            .reshape(s, b * rows, n_req, 64, d)
-        )
-        audio_out = stft_fused.masked_istft4096_cd(
-            s_r, s_i, masks_cd, jnp.asarray(out_band), f,
-            transform.synthesis_window(tcfg), n_out,
-        )
-    else:
-        masks = multi_stem_forward(
-            stacked_params, tiles, stem_mode, cfg.compute_dtype, cfg.sigmoid
-        )  # (S, B*nt, T, F, 2)
-        s = masks.shape[0]
-        masks_cf = (
-            masks.reshape(s, b, nt, t, f, rows)
-            .transpose(0, 1, 5, 2, 3, 4)
-            .reshape(s, b * rows, n_req, f)
-        )
-        audio_out = stft_fused.masked_istft4096_packed(
-            s_r, s_i, masks_cf, jnp.asarray(out_band), f,
-            transform.synthesis_window(tcfg), n_out,
-        )  # (S, B*2, out_len)
-    out_len = audio_out.shape[-1]
-    return audio_out.reshape(s, b, rows, out_len).transpose(1, 0, 2, 3)
+# Batched multi-track graphs: (B, 2, n) equal-length pre-padded tracks ->
+# (B, S, 2ch, out_len), each track exactly its single-track graph.
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "out_band", "pallas"))
+@functools.partial(jax.jit, static_argnames=("cfg", "out_band"))
 def separate_nstem_batch(
     stacked_params: Params,
-    tracks: jax.Array,  # (B, 2, n) equal-length pre-padded tracks
+    tracks: jax.Array,
     cfg: SeparatorConfig,
     out_band: tuple[float, ...],
-    pallas: bool = True,
 ) -> jax.Array:
-    """Batched multi-track N-stem graph -> (B, S, 2, out_len).
-
-    The fused path folds the track batch into the Pallas kernels' row axis
-    (one launch covers every track) instead of vmapping `separate_nstem` --
-    the manual-DMA kernels are not vmappable, and a single big launch is
-    also the efficient serving shape (benchmarks/bench_batch.py).
-    """
-    if not (pallas and _fused_stft_ok(cfg)):
-        # Per-track Pallas kernels are forced off inside the vmap: the
-        # manual-DMA kernels (pallas_fft masked-iSTFT, encoder/head) are not
-        # vmappable, so a vmapped trace with pallas=True would crash at
-        # trace time (e.g. SPLEETERRT_FUSED_STFT=0 on an accelerator).
-        return jax.vmap(
-            lambda a: separate_nstem(stacked_params, a, cfg, out_band, False)
-        )(tracks)
-    return _nstem_batch_fused(stacked_params, tracks, cfg, out_band, STEM_MODE_4)
+    """Batched N-stem graph -> (B, S, 2ch, out_len)."""
+    return jax.vmap(
+        lambda a: separate_nstem(stacked_params, a, cfg, out_band)
+    )(tracks)
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "pallas"))
+@functools.partial(jax.jit, static_argnames=("cfg",))
 def separate_2stem_batch(
     params: Params,  # single net, NO leading stem axis
-    tracks: jax.Array,  # (B, 2, n) equal-length pre-padded tracks
+    tracks: jax.Array,
     cfg: SeparatorConfig,
-    pallas: bool = True,
 ) -> jax.Array:
-    """Batched single-net 2-stem graph -> (B, 2 stems, 2ch, out_len).
-
-    The reference's offline 2-stem semantics per track
-    (Executable/main.c:773,779-808): vocals = istft(mask * spec) with
-    `unaffected_weight` (0.1) out of band; accompaniment = track - vocals
-    in the time domain. The fused path folds the track batch into the
-    Pallas kernels' row axis like `separate_nstem_batch`."""
-    b, rows, data_size = tracks.shape
-    if not (pallas and _fused_stft_ok(cfg)):
-        return jax.vmap(lambda a: separate_2stem(params, a, cfg, False))(tracks)
-    stacked1 = jax.tree.map(lambda a: a[None], params)
-    vocal = _nstem_batch_fused(
-        stacked1, tracks, cfg, (cfg.unaffected_weight,), STEM_MODE_2
-    )[:, 0]  # (B, 2ch, out_len)
-    pad = vocal.shape[-1] - data_size
-    residual = jnp.pad(tracks, ((0, 0), (0, 0), (0, pad))) - vocal
-    return jnp.stack([vocal, residual], axis=1)
+    """Batched single-net 2-stem graph -> (B, 2 stems, 2ch, out_len), the
+    reference's offline 2-stem semantics per track
+    (Executable/main.c:773,779-808)."""
+    return jax.vmap(lambda a: separate_2stem(params, a, cfg))(tracks)
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "pallas"))
+@functools.partial(jax.jit, static_argnames=("cfg",))
 def separate_3stem_batch(
     params4: Params,
     params2: Params,
-    tracks: jax.Array,  # (B, 2, n) equal-length pre-padded tracks
+    tracks: jax.Array,
     cfg: SeparatorConfig,
-    pallas: bool = True,
 ) -> jax.Array:
     """Batched two-pass 3-stem graph -> (B, 3, 2ch, out_len) ordered
-    (drums, vocals, accompaniment), Executable/main.c:845-970 semantics
-    per track. The fused path folds the track batch into the Pallas
-    kernels' row axis (see `_separate_3stem_fused_tracks`)."""
-    if pallas and _fused_stft_ok(cfg):
-        return _separate_3stem_fused_tracks(params4, params2, tracks, cfg)
-    return jax.vmap(
-        lambda a: separate_3stem(params4, params2, a, cfg, False)
-    )(tracks)
+    (drums, vocals, accompaniment), Executable/main.c:845-970 per track."""
+    return jax.vmap(lambda a: separate_3stem(params4, params2, a, cfg))(tracks)
 
 
 def separate_4stem(

@@ -42,13 +42,8 @@ def separation_loss(
     data/dataset.py::stem_activity) contribute nothing, so a corpus with
     sparse stems doesn't teach the masks to collapse to zero.
     """
-    # Canonical XLA paths only: pallas_call has no reverse-mode AD rule, so
-    # jax.value_and_grad over the fused encoder/head kernels would crash on
-    # accelerators (where the Pallas gates default on). The forward-only
-    # inference paths keep the kernels; the differentiated loss must not.
     masks = multi_stem_forward(
-        stacked_params, mix_mag, stem_mode, compute_dtype, "exact",
-        pallas_head=False, pallas_encoder=False,
+        stacked_params, mix_mag, stem_mode, compute_dtype, "exact"
     )
     est = masks * mix_mag[None].astype(masks.dtype)
     err = jnp.abs(est - target_mags.astype(masks.dtype))

@@ -3,8 +3,8 @@
 The reference implements the transform as a hand-unrolled 4096-point fast
 Hartley transform plus Hartley<->complex unpacking (Executable/codelet.c:2,
 Executable/stftFix.c:144-155). Numerically that detour is a standard real FFT
-with a chain of scale factors; on TPU we use `jnp.fft.rfft` batched over all
-frames at once and fold the scale chain into the windows:
+with a chain of scale factors; here `jnp.fft.rfft` (cuFFT on the GPU) runs
+batched over all frames at once and fold the scale chain into the windows:
 
 - Analysis window (Executable/stftFix.c:48-57, :302-308): periodic Hann with a
   half-sample offset, `0.5 * (1 - cos(2*pi*(i+0.5)/N))`, carrying a
@@ -32,102 +32,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from spleeterrt_tpu.config import TransformConfig
-from spleeterrt_tpu.kernels import fastfft
-
-
-def _use_matmul_fft() -> bool:
-    """MXU matmul FFT on accelerator backends; XLA FFT on CPU.
-
-    XLA's generic TPU FFT lowering is far off the matmul formulation for
-    this pipeline's 4096-point batches (see kernels/fastfft.py); CPU's
-    native FFT is faster than matmuls there. Overridable for testing via
-    SPLEETERRT_MXU_FFT=0/1.
-    """
-    import os
-
-    env = os.environ.get("SPLEETERRT_MXU_FFT")
-    if env is not None:
-        return env not in ("0", "false")
-    return jax.default_backend() != "cpu"
-
-
-def _use_fused_stft() -> bool:
-    """Fused Pallas STFT / masked-iSTFT kernels (kernels/stft_fused.py) on
-    accelerators; canonical formulation on CPU. Overridable for testing via
-    SPLEETERRT_FUSED_STFT=0/1. GSPMD-sharded callers must pass their
-    explicit `pallas=False` opt-outs instead (XLA cannot auto-partition
-    custom calls); the shard_map paths re-enable the kernels per-device.
-    """
-    import os
-
-    env = os.environ.get("SPLEETERRT_FUSED_STFT")
-    if env is not None:
-        return env not in ("0", "false")
-    return jax.default_backend() != "cpu"
-
-
-def rfft(frames: jax.Array, n: int) -> jax.Array:
-    """Real FFT along the last axis, MXU-dispatched for n == 4096."""
-    if n == fastfft.N and _use_matmul_fft():
-        return fastfft.rfft4096(frames)
-    return jnp.fft.rfft(frames, axis=-1)
-
-
-def irfft(
-    spec: jax.Array, n: int, window_key: str | None = None,
-    pallas: bool = True,
-) -> jax.Array:
-    """Inverse real FFT along the last axis.
-
-    n == 4096 on accelerators uses the fused Pallas kernel
-    (kernels/pallas_fft.py, ~1.6x XLA's FFT, optional fused window);
-    otherwise jnp.fft. `window_key` must be registered with
-    pallas_fft.register_window and is applied post-transform.
-    `pallas=False` forces the pure-XLA matmul formulation (required under
-    GSPMD auto-partitioning, which cannot shard custom calls).
-    """
-    if n == fastfft.N and _use_matmul_fft():
-        if pallas and jax.default_backend() != "cpu":
-            from spleeterrt_tpu.kernels import pallas_fft
-
-            return pallas_fft.irfft4096_pallas(spec, window_key)
-        out = fastfft.irfft4096(spec)
-        if window_key is not None:
-            out = out * _registered_window(window_key)
-        return out
-    out = jnp.fft.irfft(spec, n=n, axis=-1)
-    if window_key is not None:
-        out = out * _registered_window(window_key)
-    return out
-
-
-def _registered_window(window_key: str) -> jax.Array:
-    """Look up a window registered with pallas_fft.register_window, with an
-    explicit error matching the Pallas branch's contract (which tolerates
-    unknown keys via .get; direct irfft callers get a clear message here)."""
-    from spleeterrt_tpu.kernels import pallas_fft
-
-    win = pallas_fft._WINDOWS.get(window_key)
-    if win is None:
-        raise KeyError(
-            f"window {window_key!r} is not registered; call "
-            f"pallas_fft.register_window (or synthesis_window_key) first"
-        )
-    return jnp.asarray(win)
-
-
-def synthesis_window_key(cfg: TransformConfig) -> str:
-    """Register (once) and return the fused-window key for istft synthesis."""
-    from spleeterrt_tpu.kernels import pallas_fft
-
-    key = f"synth_{cfg.fft_size}_{cfg.overlap}"
-    if key not in pallas_fft._WINDOWS:
-        i = np.arange(cfg.fft_size, dtype=np.float64)
-        w = 0.5 * (1.0 - np.cos(2.0 * np.pi * (i + 0.5) / cfg.fft_size))
-        pallas_fft.register_window(
-            key, (w * cfg.synthesis_gain).astype(np.float32)
-        )
-    return key
 
 
 def analysis_window(fft_size: int, dtype=jnp.float32) -> jax.Array:
@@ -193,7 +97,7 @@ def stft(x: jax.Array, cfg: TransformConfig, data_size: int) -> jax.Array:
     """
     frames = frame_signal(x, cfg, data_size)
     w = analysis_window(cfg.fft_size, frames.dtype)
-    return rfft(frames * w, cfg.fft_size)
+    return jnp.fft.rfft(frames * w, axis=-1)
 
 
 def overlap_add(frames: jax.Array, cfg: TransformConfig) -> jax.Array:
@@ -205,9 +109,8 @@ def overlap_add(frames: jax.Array, cfg: TransformConfig) -> jax.Array:
     hop, lap = cfg.hop, cfg.overlap
     n_frames = frames.shape[-2]
     # Output block b (of n_frames + lap - 1) sums frames[b - c, c*hop:...].
-    # A sum of shift-padded lane-slices fuses into ONE pass; both a
-    # lane-splitting reshape and the earlier .at[].add formulation measured
-    # ~8-10x over the bandwidth roofline.
+    # A sum of shift-padded slices fuses into one elementwise pass, with no
+    # scatter.
     nb = frames.ndim - 2  # batch dims before (n_frames, fft_size)
     pad = [(0, 0)] * nb
     out = None
@@ -220,15 +123,14 @@ def overlap_add(frames: jax.Array, cfg: TransformConfig) -> jax.Array:
     return out.reshape(*frames.shape[:-2], (n_frames + lap - 1) * hop)
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "pallas"))
-def istft(spec: jax.Array, cfg: TransformConfig, pallas: bool = True) -> jax.Array:
+@functools.partial(jax.jit, static_argnames=("cfg",))
+def istft(spec: jax.Array, cfg: TransformConfig) -> jax.Array:
     """Inverse of :func:`stft` (with masks applied in between).
 
     Returns (..., n_frames*hop + fft_size - hop) audio; a mask-of-ones round
     trip reproduces the input at unity gain (Executable/stftFix.c:496-579).
-    `pallas=False` keeps the whole graph auto-partitionable (see irfft).
     """
-    frames = irfft(spec, cfg.fft_size, synthesis_window_key(cfg), pallas)
+    frames = jnp.fft.irfft(spec, n=cfg.fft_size, axis=-1) * synthesis_window(cfg)
     return overlap_add(frames, cfg)
 
 

@@ -16,7 +16,7 @@ Two on-disk formats exist in the reference:
    (Executable/main.c:423-443). Subnet 0 is the 4-stem-family net (ELU),
    subnet 1 the 2-stem net (leaky/ReLU) (Executable/main.c:759-760).
 
-In-memory params use TPU-native HWIO kernels (see core/model.py); this module
+In-memory params use HWIO conv kernels (see core/model.py); this module
 is the only place that knows the C layouts.
 """
 

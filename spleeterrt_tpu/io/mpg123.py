@@ -2,7 +2,7 @@
 
 Capability parity with the reference's MP3 input: the reference vendors
 dr_mp3.h (4.7k LoC) and decodes inside loadAudioFile
-(Executable/main.c:241-245). The TPU framework takes the same architectural
+(Executable/main.c:241-245). This framework takes the same architectural
 shortcut -- delegate the bitstream codec to a battle-tested third-party
 decoder -- but links the system library at runtime instead of vendoring,
 keeping the repo free of 23k-LoC codec dumps. soundfile/ffmpeg act as

@@ -10,8 +10,8 @@ attenuation beyond 110% of cutoff and <1e-4 dB passband ripple over 90% of
 the band (tests/test_io.py pins both), and the conversion ratio is kept
 EXACT -- Fraction(sr_out, sr_in) with no denominator cap -- so non-round
 rates (e.g. 44,056 Hz NTSC audio) convert without cumulative pitch drift.
-Vectorized in NumPy on the host (decode-side work; the TPU pipeline starts
-at the STFT).
+Vectorized in NumPy on the host (decode-side work; the device pipeline
+starts at the STFT).
 """
 
 from __future__ import annotations

@@ -35,14 +35,21 @@ def build(force: bool = False) -> str | None:
         src_m = max(os.path.getmtime(_SRC), os.path.getmtime(_SRC_FLAC))
         if os.path.getmtime(_LIB_PATH) >= src_m:
             return _LIB_PATH
+    # Build beside the target and rename: processes that build at once
+    # (test workers) never load a half-written library.
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        _SRC, _SRC_FLAC, "-o", _LIB_PATH,
+        _SRC, _SRC_FLAC, "-o", tmp,
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, _LIB_PATH)
     except (subprocess.CalledProcessError, FileNotFoundError):
         return None
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
     return _LIB_PATH
 
 

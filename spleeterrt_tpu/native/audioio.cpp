@@ -1,6 +1,6 @@
 // Native host-side audio runtime for spleeterrt_tpu.
 //
-// TPU-native counterpart of the reference's C runtime pieces that live
+// Host-side counterpart of the reference's C runtime pieces that live
 // outside the accelerator compute path: audio file codec (reference vendors
 // dr_wav, Executable/main.c:230-276,812-843), interleave/deinterleave
 // (channel_splitFloat/channel_joinFloat, Executable/main.c:53-76) and the

@@ -3,14 +3,14 @@
 The reference's entire scaling story is pthread pools over shared memory:
 spectrogram tiles across threads (Executable/main.c:550-575), STFT frames
 across threads (Executable/stftFix.c:379-427), one U-Net replica per stem
-thread (VST/Source/Spleeter4Stems.c:135). The TPU-native equivalents:
+thread (VST/Source/Spleeter4Stems.c:135). The mesh equivalents:
 
 - "stem" axis: the 4 per-stem U-Nets are expert-style model parallelism;
   stem-sharded params put one (or more) nets per device group.
 - "data" axis: spectrogram tiles (the reference's frame-block data
   parallelism) shard across devices; tiles are independent by design (no
   cross-tile context, SURVEY.md section 2), so mask inference needs no halo.
-- STFT/iSTFT stay replicated: they are <1% of FLOPs; the overlap-add halo
+- STFT/iSTFT stay replicated: they are a small share of the work; the overlap-add halo
   (FFTSIZE - HOP samples) is only needed if the signal axis itself is
   sharded, which the offline path avoids by sharding tiles instead.
 
@@ -73,14 +73,10 @@ def compute_masks_sharded(
     """Multi-stem masks with tiles sharded over "data" and stems over "stem".
 
     When the stem count divides the "stem" axis, the forward runs under
-    `shard_map` (manual partitioning): each device gets its stem group's
-    params and its tile shard, and the fused Pallas kernels
-    (kernels/encoder.py, kernels/mask_head.py) run PER DEVICE on local
-    shards -- XLA's GSPMD partitioner cannot shard custom calls, so this is
-    the only composition that keeps the kernels on a pod. Otherwise the
-    GSPMD formulation runs with the kernels force-disabled
-    (pallas=False -> canonical XLA convs, which GSPMD partitions freely).
-    Returns (S, 2, n_frames, bin_limit), replicated.
+    `shard_map`: each device gets its stem group's params and its tile
+    shard and computes with no collective. Otherwise GSPMD partitions the
+    graph from sharding constraints. Returns (S, 2, n_frames, bin_limit),
+    replicated.
     """
     n_data = mesh.shape["data"]
     n_stem = mesh.shape["stem"]
@@ -96,7 +92,6 @@ def compute_masks_sharded(
             mesh=mesh,
             in_specs=(P("stem"), P("data")),
             out_specs=P("stem", "data"),
-            check_vma=False,  # pallas_call declares no mesh-varying info
         )
         masks = jax.jit(fwd)(stacked_params, tiles)
     else:
@@ -104,8 +99,7 @@ def compute_masks_sharded(
             tiles, NamedSharding(mesh, P("data"))
         )
         masks = multi_stem_forward(
-            stacked_params, tiles, stem_mode, cfg.compute_dtype, cfg.sigmoid,
-            pallas_head=False, pallas_encoder=False,
+            stacked_params, tiles, stem_mode, cfg.compute_dtype, cfg.sigmoid
         )
         masks = jax.lax.with_sharding_constraint(
             masks, NamedSharding(mesh, P("stem", "data"))
@@ -131,11 +125,8 @@ def separate_4stem_sharded(
         def one(mask, uw):
             in_band = spec[..., : cfg.bin_limit] * mask.astype(spec.real.dtype)
             oob = spec[..., cfg.bin_limit :] * uw.astype(spec.real.dtype)
-            # pallas=False: this istft runs replicated inside a
-            # GSPMD-partitioned jit, where custom calls are off-limits.
             return transform.istft(
-                jnp.concatenate([in_band, oob], axis=-1), cfg.transform,
-                pallas=False,
+                jnp.concatenate([in_band, oob], axis=-1), cfg.transform
             )
 
         return jax.vmap(one)(masks, out_band)
@@ -148,11 +139,9 @@ def make_batch_fn(cfg: SeparatorConfig, mesh: Mesh, n_stems: int):
     """Cached jitted (params, tracks) -> stems for repeated batch dispatch.
 
     The track batch is `shard_map`ped over the "data" mesh axis (params
-    replicated): each device runs the FULL fused pipeline -- Pallas STFT,
-    U-Net kernels, masked iSTFT (kernels/stft_fused.py) -- on its local
-    tracks, with zero cross-device communication (tracks are independent).
-    GSPMD constraints would instead force the canonical formulation, since
-    XLA cannot auto-partition custom calls.
+    replicated): each device runs the whole pipeline -- STFT, U-Net, masked
+    iSTFT -- on its local tracks, with zero cross-device communication
+    (tracks are independent).
 
     A fresh `jax.jit(closure)` per call re-traces every time; serving loops
     must reuse one compiled callable (benchmarks/bench_batch.py measures the
@@ -181,8 +170,7 @@ def make_batch_fn(cfg: SeparatorConfig, mesh: Mesh, n_stems: int):
         return separate_nstem_batch(params, tracks, cfg, out_band)
 
     fn = jax.shard_map(
-        local, mesh=flat, in_specs=(P(), P("data")), out_specs=P("data"),
-        check_vma=False,  # pallas_call declares no mesh-varying info
+        local, mesh=flat, in_specs=(P(), P("data")), out_specs=P("data")
     )
     return jax.jit(fn), n_devices
 
@@ -191,7 +179,7 @@ def make_batch_fn(cfg: SeparatorConfig, mesh: Mesh, n_stems: int):
 def make_batch2_fn(cfg: SeparatorConfig, mesh: Mesh):
     """Cached jitted (params, tracks) -> (B, 2, 2ch, out_len) for the
     single-net 2-stem offline graph (Executable/main.c:779-808), tracks
-    shard_mapped over the flattened mesh with the fused kernels live."""
+    shard_mapped over the flattened mesh."""
     from spleeterrt_tpu.core.separate import separate_2stem_batch
 
     flat = Mesh(mesh.devices.reshape(-1), ("data",))
@@ -200,8 +188,7 @@ def make_batch2_fn(cfg: SeparatorConfig, mesh: Mesh):
         return separate_2stem_batch(params, tracks, cfg)
 
     fn = jax.shard_map(
-        local, mesh=flat, in_specs=(P(), P("data")), out_specs=P("data"),
-        check_vma=False,  # pallas_call declares no mesh-varying info
+        local, mesh=flat, in_specs=(P(), P("data")), out_specs=P("data")
     )
     return jax.jit(fn), flat.devices.size
 
@@ -227,7 +214,7 @@ def separate_2stem_batch_sharded(
 def make_batch3_fn(cfg: SeparatorConfig, mesh: Mesh):
     """Cached jitted (params4, params2, tracks) -> (B, 3, 2ch, out_len)
     for the two-pass 3-stem graph (Executable/main.c:845-970), tracks
-    shard_mapped over the flattened mesh with the fused kernels live."""
+    shard_mapped over the flattened mesh."""
     from spleeterrt_tpu.core.separate import separate_3stem_batch
 
     flat = Mesh(mesh.devices.reshape(-1), ("data",))
@@ -236,8 +223,7 @@ def make_batch3_fn(cfg: SeparatorConfig, mesh: Mesh):
         return separate_3stem_batch(params4, params2, tracks, cfg)
 
     fn = jax.shard_map(
-        local, mesh=flat, in_specs=(P(), P(), P("data")), out_specs=P("data"),
-        check_vma=False,  # pallas_call declares no mesh-varying info
+        local, mesh=flat, in_specs=(P(), P(), P("data")), out_specs=P("data")
     )
     return jax.jit(fn), flat.devices.size
 
@@ -268,9 +254,8 @@ def separate_batch_sharded(
 ) -> jax.Array:
     """Batched multi-track separation with tracks sharded over the mesh.
 
-    The BASELINE "64 stereo tracks concurrently, sharded across chips"
-    config: every track runs the full N-stem fused graph on its shard's
-    device. Returns (n_tracks, S, 2, out_len). Track counts not divisible
+    The BASELINE "64 stereo tracks concurrently, sharded across cards"
+    config: every track runs the full N-stem graph on its shard's device. Returns (n_tracks, S, 2, out_len). Track counts not divisible
     by the device count are zero-padded and cropped.
     """
     n_stems = jax.tree.leaves(stacked_params)[0].shape[0]
@@ -294,8 +279,8 @@ def compute_masks_sharded_single(
     The reference's primary CLI modes are the single-subnet 2-stem and
     two-pass 3-stem graphs (Executable/main.c:779-970); their frame-block
     data parallelism maps to tiles over the flattened mesh. Runs under
-    `shard_map` with replicated params so the fused Pallas kernels stay
-    live per device. Returns (2, n_frames, bin_limit), replicated.
+    `shard_map` with replicated params. Returns (2, n_frames, bin_limit),
+    replicated.
     """
     from spleeterrt_tpu.core.model import unet_forward
 
@@ -310,7 +295,6 @@ def compute_masks_sharded_single(
         mesh=flat,
         in_specs=(P(), P("data")),
         out_specs=P("data"),
-        check_vma=False,  # pallas_call declares no mesh-varying info
     )
     masks = jax.jit(fwd)(params, tiles)[:n_tiles]
     return tiles_to_frames(masks, spec.shape[-2])
@@ -324,8 +308,7 @@ def separate_2stem_sharded(
 ) -> jax.Array:
     """Mesh-sharded 2-stem graph (Executable/main.c:779-808): vocals =
     istft(mask * spec), accompaniment = input - vocals in time. Tiles shard
-    over all devices; the transforms run replicated on the canonical
-    formulation (<1% of FLOPs; GSPMD cannot partition custom calls).
+    over all devices; the transforms run replicated.
     Returns (2, 2ch, out_len), matching core.separate.separate_2stem."""
     from spleeterrt_tpu.config import STEM_MODE_2
     from spleeterrt_tpu.core.separate import apply_mask
@@ -337,9 +320,7 @@ def separate_2stem_sharded(
         masks = compute_masks_sharded_single(
             params, spec, cfg, mesh, STEM_MODE_2
         )
-        vocal = transform.istft(
-            apply_mask(spec, masks, cfg), cfg.transform, pallas=False
-        )
+        vocal = transform.istft(apply_mask(spec, masks, cfg), cfg.transform)
         pad = vocal.shape[-1] - data_size
         residual = jnp.pad(audio, ((0, 0), (0, pad))) - vocal
         return jnp.stack([vocal, residual])
@@ -371,18 +352,14 @@ def separate_3stem_sharded(
         )
         drum_spec = apply_mask(spec, drum_masks, cfg)
         residual_spec = spec - drum_spec
-        drums = transform.istft(drum_spec, cfg.transform, pallas=False)
+        drums = transform.istft(drum_spec, cfg.transform)
         vocal_masks = compute_masks_sharded_single(
             params2, residual_spec, cfg, mesh, STEM_MODE_2
         )
         vocals = transform.istft(
-            apply_mask(residual_spec, vocal_masks, cfg), cfg.transform,
-            pallas=False,
+            apply_mask(residual_spec, vocal_masks, cfg), cfg.transform
         )
-        accompaniment = (
-            transform.istft(residual_spec, cfg.transform, pallas=False)
-            - vocals
-        )
+        accompaniment = transform.istft(residual_spec, cfg.transform) - vocals
         return jnp.stack([drums, vocals, accompaniment])
 
     return jax.jit(fn)(params4, params2, audio)
@@ -392,11 +369,11 @@ def make_stream_fn(cfg: SeparatorConfig, mesh: Mesh, n_stems: int = 4,
                    out_band: tuple[float, ...] | None = None):
     """Cached-compile streaming step with K streams sharded over the mesh.
 
-    The multi-chip serving shape for the RT engine: each device runs
-    `runtime.stream.block_step_streams` -- with the fused Pallas kernels
-    live -- on its local K/N streams; streams are independent, so there is
-    zero cross-device communication (the TPU analog of one VST instance
-    per CPU, VST/Source/Spleeter4Stems.c:512-582, scaled to a mesh).
+    The multi-card serving shape for the RT engine: each device runs
+    `runtime.stream.block_step_streams` on its local K/N streams; streams
+    are independent, so there is zero cross-device communication (one VST
+    instance per CPU, VST/Source/Spleeter4Stems.c:512-582, scaled to a
+    mesh).
     Returns (step_fn, n_devices): step_fn(params, state, blocks) ->
     (new_state, out_blocks) where every state leaf and blocks carry a
     leading K axis divisible by n_devices.
@@ -416,7 +393,6 @@ def make_stream_fn(cfg: SeparatorConfig, mesh: Mesh, n_stems: int = 4,
         local, mesh=flat,
         in_specs=(P(), P("data"), P("data")),
         out_specs=(P("data"), P("data")),
-        check_vma=False,  # pallas_call declares no mesh-varying info
     )
     return jax.jit(fn), flat.devices.size
 
@@ -434,14 +410,12 @@ def stream_scan_sharded(
 
     The mesh mapping of the VST's 4 background NN threads
     (VST/Source/Spleeter4Stems.c TASK_NB=5): under `shard_map`, each stem
-    group's devices scan the whole signal for THEIR stems with the fused
-    Pallas kernels live -- mask inference, masked synthesis, and
-    overlap-add are all per-stem, so there is zero cross-device
-    communication; only the analysis rFFT (<1% of the work) is computed
+    group's devices scan the whole signal for THEIR stems -- mask
+    inference, masked synthesis, and overlap-add are all per-stem, so there
+    is zero cross-device communication; only the analysis rFFT is computed
     redundantly per group. Output matches runtime.stream.stream_scan
     (tests/test_sharding.py). Stem counts that do not divide the "stem"
-    axis fall back to the GSPMD formulation with the kernels disabled
-    (XLA cannot auto-partition custom calls).
+    axis are partitioned by GSPMD from the params' sharding.
     """
     from spleeterrt_tpu.runtime import stream as stream_mod
 
@@ -455,25 +429,24 @@ def stream_scan_sharded(
 
         def local(params, uw_l, audio):
             return stream_mod._stream_scan_impl(
-                params, audio, cfg, s_local, uw_l, True, freq_temporal
+                params, audio, cfg, s_local, uw_l, freq_temporal
             )
 
         fn = jax.shard_map(
             local, mesh=mesh,
             in_specs=(P("stem"), P("stem"), P()),
             out_specs=P("stem"),
-            check_vma=False,  # pallas_call declares no mesh-varying info
+            # The scan's initial carry (stream.init_state) is replicated and
+            # its body output is stem-varying; skip the carry vma check.
+            check_vma=False,
         )
         return jax.jit(fn)(stacked_params, uw, audio)
 
     params = shard_params(stacked_params, mesh, stem_sharded=True)
 
     def fn(params, audio):
-        # pallas=False: this graph runs under GSPMD auto-partitioning (stem
-        # axis sharded), where custom calls cannot be partitioned.
         return stream_mod.stream_scan(
-            params, audio, cfg, n_stems, out_band, pallas=False,
-            freq_temporal=freq_temporal,
+            params, audio, cfg, n_stems, out_band, freq_temporal=freq_temporal
         )
 
     return jax.jit(fn)(params, audio)

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from spleeterrt_tpu.config import STEM_MODE_4, SeparatorConfig
@@ -88,9 +87,9 @@ def separate_4stem_timesharded(
         # Zero frames at/after the reference's computed range.
         gframe = d * frames_per_dev + jnp.arange(frames_per_dev)
         frames = jnp.where((gframe < n_comp)[None, :, None], frames, 0.0)
-        spec = transform.rfft(frames * wa, fft)  # (2, F_local, bins)
+        spec = jnp.fft.rfft(frames * wa, axis=-1)  # (2, F_local, bins)
 
-        # Local tiles -> fused multi-stem U-Net (params replicated).
+        # Local tiles -> multi-stem U-Net (params replicated).
         bl, t = cfg.bin_limit, cfg.time_step
         nt = frames_per_dev // t
         mag = jnp.abs(spec[..., :bl]).reshape(2, nt, t, bl)
@@ -106,7 +105,7 @@ def separate_4stem_timesharded(
         )
         masked = jnp.concatenate([masked_in, masked_out], axis=-1)
 
-        frames_t = transform.irfft(masked, fft) * ws  # (4,2,F,fft)
+        frames_t = jnp.fft.irfft(masked, n=fft, axis=-1) * ws  # (4,2,F,fft)
         # Local overlap-add -> (4, 2, chunk + halo).
         lap = tcfg.overlap
         chunks4 = frames_t.reshape(4, 2, frames_per_dev, lap, hop)
@@ -123,12 +122,11 @@ def separate_4stem_timesharded(
         )  # device d receives device d-1's tail; device 0 gets zeros
         return y[..., :chunk].at[..., :halo].add(from_left)
 
-    fn = shard_map(
+    fn = jax.shard_map(
         local,
         mesh=mesh,
         in_specs=(P(), P(None, axis)),
         out_specs=P(None, None, axis),
-        check_rep=False,
     )
     return fn(stacked_params, audio)
 

@@ -55,7 +55,7 @@ def _chunk_step(
     )
     gframe = frame_offset + jnp.arange(n_frames_chunk)
     frames = jnp.where((gframe < n_comp)[None, :, None], frames, 0.0)
-    spec = transform.rfft(frames * wa, fft)
+    spec = jnp.fft.rfft(frames * wa, axis=-1)
 
     nt = n_frames_chunk // t
     tiles = jnp.abs(spec[..., :bl]).reshape(2, nt, t, bl).transpose(1, 2, 3, 0)
@@ -73,7 +73,7 @@ def _chunk_step(
         ],
         axis=-1,
     )
-    frames_t = transform.irfft(masked, fft) * ws
+    frames_t = jnp.fft.irfft(masked, n=fft, axis=-1) * ws
     chunks4 = frames_t.reshape(n_stems, 2, n_frames_chunk, lap, hop)
     nb = n_frames_chunk + lap - 1
     y = jnp.zeros((n_stems, 2, nb, hop), frames_t.dtype)

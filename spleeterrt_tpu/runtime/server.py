@@ -264,7 +264,10 @@ def main(argv=None) -> int:
 
     from spleeterrt_tpu import cli
     from spleeterrt_tpu.config import SeparatorConfig
+    from spleeterrt_tpu.core import platform
 
+    platform.enable_compile_cache()
+    print(f"backend: {platform.backend()}")
     cfg = SeparatorConfig(
         bin_limit=args.bin_limit // 64 * 64,
         time_step=max(64, args.time_step // 64 * 64),

@@ -2,7 +2,7 @@
 
 The reference's observability is wall/CPU-clock printf timing
 (Executable/main.c:21-52, :772-965) and a disabled PNG spectrogram dumper
-(VST/Source/Spleeter4Stems.c:218-256). TPU-native equivalents: stage timers
+(VST/Source/Spleeter4Stems.c:218-256). Equivalents here: stage timers
 that force device completion, `jax.profiler` trace scoping, and spectrogram
 dumps to PNG via pure NumPy.
 """

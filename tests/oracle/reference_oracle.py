@@ -187,6 +187,38 @@ def unpack_blob(blob: bytes) -> dict:
     return fields
 
 
+def encoder_layer(fields: dict, x: np.ndarray, i: int, stem_mode: int):
+    """down<i> on (Cin,H,W) -> (pre-activation skip, output).
+
+    act(scale*(conv+bias)+shift) for down1..down5; the bottleneck down6 is
+    bias-only (Executable/spleeter.c:177-238).
+    """
+    act_e = leaky_relu if stem_mode == 0 else elu
+    conv = conv5x5_s2(x, fields[f"down{i}_w"], fields[f"down{i}_b"])
+    if i == 6:
+        return conv, conv
+    out = act_e(
+        fields[f"down{i}_scale"][:, None, None] * conv
+        + fields[f"down{i}_shift"][:, None, None]
+    )
+    return conv, out
+
+
+def decoder_layer(fields: dict, x: np.ndarray, i: int, stem_mode: int):
+    """up<i> (1..6) on (Cin,H,W): scale*act(tconv+bias)+shift."""
+    act_d = relu if stem_mode == 0 else elu
+    y = tconv5x5_s2(x, fields[f"up{i}_w"]) + fields[f"up{i}_b"][:, None, None]
+    return (
+        fields[f"up{i}_scale"][:, None, None] * act_d(y)
+        + fields[f"up{i}_shift"][:, None, None]
+    )
+
+
+def mask_layer(fields: dict, x: np.ndarray) -> np.ndarray:
+    """up7: sigmoid(final dilated conv + bias) (exact sigmoid, VST variant)."""
+    return sigmoid(conv4x4_d2(x, fields["up7_w"], fields["up7_b"]))
+
+
 def unet(fields: dict, mag: np.ndarray, stem_mode: int) -> np.ndarray:
     """Full U-Net forward on (2, T, F) magnitude -> (2, T, F) mask.
 
@@ -195,30 +227,15 @@ def unet(fields: dict, mag: np.ndarray, stem_mode: int) -> np.ndarray:
     bias-only; decoder scale*act(x+bias)+shift; concat [skip, up];
     final sigmoid(conv+bias). Uses the exact sigmoid (VST variant).
     """
-    act_e = leaky_relu if stem_mode == 0 else elu
-    act_d = relu if stem_mode == 0 else elu
-
     x = mag
     skips = []
     for i in range(1, 7):
-        conv = conv5x5_s2(x, fields[f"down{i}_w"], fields[f"down{i}_b"])
-        if i < 6:
-            skips.append(conv)
-            x = act_e(
-                fields[f"down{i}_scale"][:, None, None] * conv
-                + fields[f"down{i}_shift"][:, None, None]
-            )
-        else:
-            x = conv
+        conv, x = encoder_layer(fields, x, i, stem_mode)
+        skips.append(conv)
     for i in range(1, 7):
-        y = tconv5x5_s2(x, fields[f"up{i}_w"]) + fields[f"up{i}_b"][:, None, None]
-        y = (
-            fields[f"up{i}_scale"][:, None, None] * act_d(y)
-            + fields[f"up{i}_shift"][:, None, None]
-        )
+        y = decoder_layer(fields, x, i, stem_mode)
         x = np.concatenate([skips[5 - i], y], axis=0) if i < 6 else y
-    logits = conv4x4_d2(x, fields["up7_w"], fields["up7_b"])
-    return sigmoid(logits)
+    return mask_layer(fields, x)
 
 
 def offline_separate_2stem(

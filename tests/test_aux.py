@@ -25,7 +25,7 @@ def test_loss_grads_finite_at_huge_preactivations():
     exp's f32 overflow point (~88) must not NaN the gradients -- the
     where-zeroed cotangent multiplied d(expm1) = exp(x) = inf into
     0 * inf = NaN before _elu clamped its argument from above. Observed
-    killing real TPU training at step 88 of examples/train_and_deploy.py."""
+    killing training at step 88 of examples/train_and_deploy.py."""
     stacked = jax.tree.map(
         lambda *xs: jnp.stack(xs),
         *[model.init_params(jax.random.PRNGKey(i)) for i in range(2)],

@@ -121,20 +121,10 @@ def test_silent_stem_masking_zeroes_gradient(tmp_path, rng):
     np.testing.assert_allclose(float(loss), expect, rtol=1e-6)
 
 
-def test_separation_loss_grad_with_pallas_gates_forced(rng, monkeypatch):
-    """Training must differentiate even where the Pallas gates default ON.
-
-    `pallas_call` has no reverse-mode AD rule, so separation_loss forces the
-    canonical XLA formulation (pallas_head/pallas_encoder False). Forcing
-    both gates on -- the accelerator default that CPU tests otherwise never
-    see -- must still let value_and_grad trace and yield finite gradients."""
-    import functools
-
-    from jax.experimental import pallas as pl
-
-    monkeypatch.setattr(
-        pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True)
-    )
+def test_separation_loss_grad_matches_finite_difference(rng):
+    """The loss's reverse-mode gradient agrees with a central difference
+    along a random direction in every weight (the training graph is the
+    same plain formulation the inference paths run)."""
     stacked = weights.stack_params(
         [model.init_params(jax.random.PRNGKey(i)) for i in range(2)]
     )
@@ -144,19 +134,21 @@ def test_separation_loss_grad_with_pallas_gates_forced(rng, monkeypatch):
     tgt = jnp.asarray(
         np.abs(rng.standard_normal((2, 1, 64, 512, 2))).astype(np.float32)
     )
-    model.FORCE_PALLAS_ENCODER = True
-    model.FORCE_PALLAS_HEAD = True
-    try:
-        loss, grads = jax.value_and_grad(train.separation_loss)(
-            stacked, mix, tgt, compute_dtype=jnp.float32
-        )
-    finally:
-        model.FORCE_PALLAS_ENCODER = None
-        model.FORCE_PALLAS_HEAD = None
-    assert np.isfinite(float(loss))
-    assert all(
-        np.all(np.isfinite(np.asarray(l))) for l in jax.tree.leaves(grads)
+    loss = lambda p: train.separation_loss(p, mix, tgt, compute_dtype=jnp.float32)
+    leaves, tree = jax.tree.flatten(stacked)
+    d = jax.tree.unflatten(
+        tree,
+        [jnp.asarray(rng.standard_normal(l.shape), jnp.float32) for l in leaves],
     )
+    grads = jax.grad(loss)(stacked)
+    directional = sum(
+        float(jnp.vdot(g, v)) for g, v in zip(jax.tree.leaves(grads), jax.tree.leaves(d))
+    )
+    eps = 1e-3
+    step = lambda s: jax.tree.map(lambda p, v: p + s * eps * v, stacked, d)
+    fd = (float(loss(step(1.0))) - float(loss(step(-1.0)))) / (2 * eps)
+    assert np.isfinite(directional)
+    np.testing.assert_allclose(directional, fd, rtol=2e-2)
 
 
 def test_deploy_params_folds_training_scale(rng):

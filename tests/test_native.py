@@ -8,9 +8,12 @@ import pytest
 from spleeterrt_tpu import native
 from spleeterrt_tpu.io import audio, resample
 
-pytestmark = pytest.mark.skipif(
-    native.get_lib() is None, reason="native toolchain unavailable"
-)
+@pytest.fixture(autouse=True)
+def _native_lib():
+    # Decided per test, not at import: every xdist worker must collect the
+    # same tests whatever its build of the library did.
+    if native.get_lib() is None:
+        pytest.skip("native toolchain unavailable")
 
 
 def _wav_bytes(x, sr, fmt):

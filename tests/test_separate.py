@@ -1,6 +1,7 @@
 """End-to-end offline separation parity vs the oracle + stem-graph laws."""
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from spleeterrt_tpu.config import SeparatorConfig, TransformConfig
@@ -217,4 +218,74 @@ def test_wider_config_shapes(rng):
     np.testing.assert_allclose(
         np.asarray(got["vocals"]) + np.asarray(got["accompaniment"]),
         audio, atol=1e-5,
+    )
+
+
+def _stacked(rng, n):
+    return weights.stack_params(
+        [weights.blob_to_params(weights.random_blob(rng, 0.02)) for _ in range(n)]
+    )
+
+
+def _batch_case(rng, num_stems, cfg, padded):
+    """(batched graph output, per-track graph output) for one stem family."""
+    if num_stems == 2:
+        p = weights.blob_to_params(weights.random_blob(rng, 0.02))
+        got = separate.separate_2stem_batch(p, padded, cfg)
+        ref = [separate.separate_2stem(p, a, cfg) for a in padded]
+    elif num_stems == 3:
+        p4 = weights.blob_to_params(weights.random_blob(rng, 0.02))
+        p2 = weights.blob_to_params(weights.random_blob(rng, 0.02))
+        got = separate.separate_3stem_batch(p4, p2, padded, cfg)
+        ref = [separate.separate_3stem(p4, p2, a, cfg) for a in padded]
+    else:
+        out_band = separate.OUT_BAND_4 if num_stems == 4 else separate.OUT_BAND_5
+        stacked = _stacked(rng, num_stems)
+        got = separate.separate_nstem_batch(stacked, padded, cfg, out_band)
+        ref = [separate.separate_nstem(stacked, a, cfg, out_band) for a in padded]
+    return np.asarray(got), np.stack([np.asarray(r) for r in ref])
+
+
+@pytest.mark.parametrize("num_stems", [2, 3, 4, 5])
+def test_batch_graph_equals_per_track(rng, num_stems):
+    """Every batched stem graph is its single-track graph per track."""
+    cfg = SeparatorConfig(
+        bin_limit=512, time_step=64, num_stems=num_stems,
+        compute_dtype=jnp.float32,
+    )
+    tracks = np.stack([_audio(rng, 9000), _audio(rng, 9000)[::-1]])
+    padded = transform.pad_offline(jnp.asarray(tracks), cfg.transform)
+    got, ref = _batch_case(rng, num_stems, cfg, padded)
+    assert got.shape == ref.shape
+    assert got.shape[:2] == (2, num_stems)
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "bin_limit,time_step", [(512, 64), (1024, 64), (1536, 256), (2048, 512)]
+)
+def test_mask_of_ones_round_trip(rng, bin_limit, time_step):
+    """A net whose masks are exactly 1 and an out-of-band weight of 1 make
+    the whole N-stem graph (tiles, U-Net, mask multiply, iSTFT at FFT 4096 /
+    hop 1024) the identity on the input (unity-gain scale chain,
+    Executable/stftFix.c)."""
+    import jax
+    from spleeterrt_tpu.core import model
+
+    cfg = SeparatorConfig(
+        bin_limit=bin_limit, time_step=time_step, num_stems=4,
+        compute_dtype=jnp.float32,
+    )
+    p = model.init_params(jax.random.PRNGKey(0))
+    # sigmoid(0 * x + 40) == 1.0 exactly in fp32.
+    p["up7"] = {"w": jnp.zeros_like(p["up7"]["w"]), "b": jnp.full((2,), 40.0)}
+    audio = _audio(rng, 30000)
+    n = audio.shape[-1]
+    padded = transform.pad_offline(jnp.asarray(audio), cfg.transform)
+    out = separate.separate_nstem(
+        weights.stack_params([p]), padded, cfg, (1.0,)
+    )
+    pre = cfg.transform.fft_size
+    np.testing.assert_allclose(
+        np.asarray(out)[0, :, pre : pre + n], audio, atol=5e-6
     )

@@ -127,57 +127,6 @@ def test_batched_multitrack_sharded(rng):
     )
 
 
-def test_sharded_pallas_kernels_match(rng, monkeypatch):
-    """The composition a pod actually runs: fused Pallas kernels INSIDE
-    shard_map (per-device manual partitioning). Forces every kernel gate on
-    (interpret-mode pallas; the gates default off on CPU) and compares
-    against the canonical formulation (VERDICT r2: the GSPMD dryrun only
-    certified the non-Pallas lowering)."""
-    import functools
-
-    from jax.experimental import pallas as pl
-
-    stacked = _stacked(rng)
-    audio = jnp.asarray(rng.standard_normal((2, 3 * 4096)), jnp.float32) * 0.3
-    padded = transform.pad_offline(audio, CFG.transform)
-    spec = transform.stft(padded, CFG.transform, padded.shape[-1])
-    ref_masks = np.asarray(
-        separate.compute_masks_multi(stacked, spec, CFG, 1, pallas=False)
-    )
-    ref_stems = np.asarray(
-        separate.separate_nstem(
-            stacked, padded, CFG, separate.OUT_BAND_4, pallas=False
-        )
-    )
-
-    monkeypatch.setattr(
-        pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True)
-    )
-    monkeypatch.setenv("SPLEETERRT_FUSED_STFT", "1")
-    separate.separate_nstem.clear_cache()
-    pmesh.make_batch_fn.cache_clear()
-    model.FORCE_PALLAS_ENCODER = True
-    model.FORCE_PALLAS_HEAD = True
-    try:
-        m = pmesh.make_mesh(stem_parallel=4)  # 4 stem groups x 2 data
-        sharded_params = pmesh.shard_params(stacked, m, stem_sharded=True)
-        masks = jax.jit(
-            lambda p, s: pmesh.compute_masks_sharded(p, s, CFG, m)
-        )(sharded_params, spec)
-        np.testing.assert_allclose(np.asarray(masks), ref_masks, atol=2e-5)
-
-        tracks = jnp.stack([padded] * 8)
-        got = pmesh.separate_batch_sharded(
-            stacked, tracks, CFG, pmesh.make_mesh(stem_parallel=1)
-        )
-        np.testing.assert_allclose(np.asarray(got[5]), ref_stems, atol=2e-4)
-    finally:
-        model.FORCE_PALLAS_ENCODER = None
-        model.FORCE_PALLAS_HEAD = None
-        separate.separate_nstem.clear_cache()
-        pmesh.make_batch_fn.cache_clear()
-
-
 def test_stream_scan_sharded_matches_unsharded(rng):
     """Stem-sharded streaming == single-device streaming, sample-exact."""
     from spleeterrt_tpu.runtime import stream
